@@ -1,8 +1,9 @@
 """point_sam_tpu_torch: the PyTorch / CUDA (NVIDIA Hopper) port of point_sam_tpu.
 
 Interactive inference (``serving.Predictor`` over ``models.PointCloudSAM``)
-runs on one H100 with four hand-written CUDA kernels (see ``ops``); on the
-CPU every kernel has a plain torch version. The JAX package ``point_sam_tpu``
+and training (``train.trainer``) run on one H100 with hand-written CUDA
+kernels (see ``ops``): four forward kernels and two backward kernels; on
+the CPU every kernel has a plain torch version. The JAX package ``point_sam_tpu``
 is the reference this port is tested against; this package never imports
 it (or JAX).
 """
@@ -17,6 +18,6 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from . import models, ops, serving, utils  # noqa: E402
+from . import datasets, models, ops, parallel, serving, train, utils  # noqa: E402
 
-__all__ = ["models", "ops", "serving", "utils"]
+__all__ = ["datasets", "models", "ops", "parallel", "serving", "train", "utils"]

@@ -1,5 +1,6 @@
 """Models of the PyTorch port (counterpart of point_sam_tpu/models)."""
 
+from .loss import compute_iou, compute_jaccard, compute_mask_loss, criterion
 from .layers import GELU, MLP, CoordMLP, Dense, Embedding, LayerNorm, MLPBlock, PointNetLayer
 from .mask_decoder import MaskDecoder, OutputUpscaling
 from .patch_encoder import PatchEncoder
@@ -16,5 +17,6 @@ __all__ = [
     "PointCloudEncoder", "PointCloudSAM", "PointEncoder", "PointNetLayer", "PointSAMConfig",
     "PositionEmbeddingRandom", "TokenizerConfig", "TwoWayAttentionBlock", "TwoWayTransformer",
     "VIT_PRESETS", "ViT", "ViTConfig", "cast_params_for_inference", "compute_geometry",
+    "compute_iou", "compute_jaccard", "compute_mask_loss", "criterion",
     "for_inference", "get_vit_config", "mask_group_rel_xyz",
 ]

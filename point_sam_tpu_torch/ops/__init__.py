@@ -1,12 +1,17 @@
 """Geometry and kernel ops of the PyTorch port.
 
 Four ops launch hand-written Hopper kernels on CUDA tensors and run their
-plain torch versions on CPU tensors:
+plain torch versions on CPU tensors; two of them also have a backward
+kernel (autograd Functions):
 
 - ``fps_with_interp`` -> K1 (csrc/fps_interp.cu)
-- ``patch_encoder_fused`` -> K2 (csrc/patch_encoder.cu)
-- ``mha_flat`` -> K3 (csrc/attention.cu)
-- ``interp_upscale_hyper_fused`` -> K4 (csrc/upscale.cu)
+- ``patch_encoder_fused`` -> K2 (csrc/patch_encoder.cu), backward K7
+  (csrc/patch_encoder_bwd.cu)
+- ``mha_flat`` -> K3 (csrc/attention.cu), backward K6 (csrc/attention_bwd.cu)
+- ``interp_upscale_hyper_fused`` -> K4 (csrc/upscale.cu), backward a plain
+  torch recompute
+
+``sample_prompts`` is the training click simulator (plain torch).
 """
 
 from .attention import mha_flat
@@ -25,6 +30,7 @@ from .interp import (
 )
 from .knn import knn
 from .patch_encoder_pallas import patch_encoder_fused
+from .sampler import sample_prompts, sample_prompts_random
 from .upscale_pallas import interp_upscale_hyper_fused
 
 __all__ = [
@@ -41,6 +47,8 @@ __all__ = [
     "mha_flat",
     "patch_encoder_fused",
     "repeat_interleave",
+    "sample_prompts",
+    "sample_prompts_random",
     "sq_dist",
     "sq_dist_to_point",
 ]

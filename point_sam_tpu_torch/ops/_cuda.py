@@ -1,10 +1,12 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-The sources are compiled at first use by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``:
+The sources are compiled at first use by ``nvcc``, one process per source
+file, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libpsam_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu     (each source)
+    nvcc -shared -o libpsam_kernels.so *.o
 
 The library lands in ``build/point_sam_tpu_torch/<hash>/`` under the
 repository root, keyed by a hash of the sources and flags, so an edited
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "point_sam_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -45,6 +47,14 @@ _SIGNATURES = {
     "psam_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "psam_interp_upscale": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _P],
+    "psam_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                           _P],
+    "psam_patch_encoder_bwd": [_P, _P, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P,
+                               _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P],
+    "psam_patch_encoder_bwd_slices": [_I],
 }
 
 
@@ -71,13 +81,29 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libpsam_kernels.{os.getpid()}.so"
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
+    tag = os.getpid()
+    nvcc = _nvcc()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        jobs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), obj))
+    errors = []
+    for name, proc, _ in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name} ({proc.returncode}):\n{out}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    tmp = out_dir / f"libpsam_kernels.{tag}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for *_, o in jobs)],
                           capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
+    for *_, obj in jobs:
+        obj.unlink()
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
     return lib_path
 
@@ -118,6 +144,22 @@ def require_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel input is not a CUDA tensor")
         if not t.is_contiguous():
             raise ValueError("kernel input is not contiguous")
+
+
+def counted(wrapper):
+    """Give a kernel wrapper its launch counters: ``launches`` in all and
+    ``shapes``, the launches by shape and dtype (see ``count_launch``)."""
+    wrapper.launches = 0
+    wrapper.shapes = {}
+    return wrapper
+
+
+def count_launch(wrapper, **shape) -> None:
+    """Tally one launch of ``wrapper``'s kernel. ``shape`` names the sizes
+    and dtypes that fix the launch; a check can rebuild inputs from it."""
+    wrapper.launches += 1
+    key = tuple(shape.items())
+    wrapper.shapes[key] = wrapper.shapes.get(key, 0) + 1
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -109,6 +109,7 @@ def fps_interp_plain(points: torch.Tensor, num_samples: int, *,
             torch.stack([i0, i1, i2], -1), torch.stack([b0, b1, b2], -1))
 
 
+@_cuda.counted
 def fps_interp_cuda(points: torch.Tensor, num_samples: int, *,
                     valid: torch.Tensor | None = None):
     """Kernel K1 on the card; same outputs as ``fps_interp_plain``."""
@@ -134,11 +135,8 @@ def fps_interp_cuda(points: torch.Tensor, num_samples: int, *,
         _cuda.ptr(idx), _cuda.ptr(centers), _cuda.ptr(interp_idx),
         _cuda.ptr(interp_d2), _cuda.ptr(cand_v), _cuda.ptr(cand_i), _cuda.stream())
     _cuda.check("psam_fps_interp", code)
-    fps_interp_cuda.launches += 1
+    _cuda.count_launch(fps_interp_cuda, B=B, N=N, G=G, valid=valid is not None)
     return idx, centers, interp_idx, interp_d2
-
-
-fps_interp_cuda.launches = 0
 
 
 def fps_with_interp(

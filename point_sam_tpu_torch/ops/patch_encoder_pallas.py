@@ -2,13 +2,23 @@
 point_sam_tpu/ops/patch_encoder_pallas.py; the file keeps the reference's
 name so each module's counterpart is easy to find).
 
-``patch_encoder_fused`` launches kernel K2 (``csrc/patch_encoder.cu``) on a
-CUDA tensor and runs ``patch_encoder_plain`` on a CPU tensor. Both follow
-the reference kernel's numerics: matmul operands in the compute dtype
-``cdt`` with fp32 accumulation, the product rounded to ``cdt`` and the bias
-added in ``cdt`` (flax Dense); fp32 two-pass LayerNorm statistics with
-eps 1e-5; LN -> GELU fused in fp32 for ``act="erf"``, or the LN affine and
-the tanh GELU in ``cdt`` for ``act="tanh"``.
+``patch_encoder_fused`` runs the ``PatchEncoderFused`` autograd Function
+(the counterpart of ``patch_encoder_fused_ad``):
+
+- forward: kernel K2 (``csrc/patch_encoder.cu``) on a CUDA tensor,
+  ``patch_encoder_plain`` on a CPU tensor;
+- backward: kernel K7 (``csrc/patch_encoder_bwd.cu``, replacing
+  ``patch_encoder_fused_bwd``) on a CUDA tensor,
+  ``patch_encoder_bwd_plain`` on a CPU tensor.
+
+All follow the reference kernels' numerics: matmul operands in the compute
+dtype ``cdt`` with fp32 accumulation, the product rounded to ``cdt`` and
+the bias added in ``cdt`` (flax Dense); fp32 two-pass LayerNorm statistics
+with eps 1e-5; LN -> GELU fused in fp32 for ``act="erf"``, or the LN affine
+and the tanh GELU in ``cdt`` for ``act="tanh"``. Both max-pools send their
+gradient to the FIRST maximal element of each column (torch ``max`` and
+the reference's ``_maxpool_bwd``); in bf16 ties among K neighbours are
+common, so the routing is part of the numerics.
 """
 
 from __future__ import annotations
@@ -44,6 +54,13 @@ def ln_gelu(x, scale, shift, cdt, act: str = "erf"):
     return gelu_erf(y * scale.float() + shift.float()).to(cdt)
 
 
+def first_max(x, dim: int):
+    """Max over ``dim`` whose gradient goes wholly to the first maximal
+    element (``amax`` would split it among ties)."""
+    idx = x.argmax(dim, keepdim=True)
+    return torch.take_along_dim(x, idx, dim).squeeze(dim)
+
+
 def patch_encoder_plain(grouped, params, *, num_groups, group_size, cdt,
                         act: str = "erf"):
     """Plain torch version of kernel K2.
@@ -64,15 +81,16 @@ def patch_encoder_plain(grouped, params, *, num_groups, group_size, cdt,
     h = _dense(h, w1b, b1b, cdt)  # [B, G, K, h0]
     h0 = h.shape[-1]
     # The pooled half of the stage-2 Dense is constant over K.
-    pooled = h.amax(dim=2)
+    pooled = first_max(h, 2)
     up_pool = torch.matmul(pooled.to(cdt).float(), w2a[:h0].to(cdt).float())
     up_pt = torch.matmul(h.to(cdt).float(), w2a[h0:].to(cdt).float())
     h = (up_pt + up_pool[:, :, None]).to(cdt) + b2a.to(cdt)
     h = ln_gelu(h, s2, t2, cdt, act)
     h = _dense(h, w2b, b2b, cdt)
-    return h.amax(dim=2).to(cdt)
+    return first_max(h, 2).to(cdt)
 
 
+@_cuda.counted
 def patch_encoder_cuda(grouped, params, *, num_groups, group_size, cdt,
                        act: str = "erf"):
     """Kernel K2 on the card; same contract as ``patch_encoder_plain``."""
@@ -97,16 +115,203 @@ def patch_encoder_cuda(grouped, params, *, num_groups, group_size, cdt,
         h0, h1, cout, p(out), int(act == "tanh"), _cuda.dtype_code(cdt),
         _cuda.stream())
     _cuda.check("psam_patch_encoder", code)
-    patch_encoder_cuda.launches += 1
+    _cuda.count_launch(patch_encoder_cuda, B=B, G=G, K=K, cin=cin, h0=h0, h1=h1, cout=cout,
+                       cdt=str(cdt), act=act)
     return out
 
 
-patch_encoder_cuda.launches = 0
+
+_GELU_C0 = 0.7978845608028654  # sqrt(2/pi)
+_GELU_C1 = 0.044715
+
+
+def _act_and_grad(y32, act: str):
+    """(GELU(y), GELU'(y)) in fp32, as the reference backward recomputes
+    them from the fp32 LN output (``_act`` / ``_act_grad``)."""
+    if act == "tanh":
+        y2 = y32 * y32
+        t = torch.tanh(_GELU_C0 * (y32 + _GELU_C1 * y32 * y2))
+        du = _GELU_C0 * (1.0 + 3.0 * _GELU_C1 * y2)
+        return 0.5 * y32 * (1.0 + t), 0.5 * (1.0 + t) + 0.5 * y32 * (1.0 - t * t) * du
+    cdf = 0.5 * (1.0 + torch.erf(y32 * _SQRT_HALF))
+    return y32 * cdf, cdf + y32 * torch.exp(-0.5 * y32 * y32) * 0.3989422804014327
+
+
+def _ln_stats(a, scale, shift):
+    """(fp32 LN output, mean, 1/std) with two-pass statistics."""
+    x32 = a.float()
+    m = x32.mean(-1, keepdim=True)
+    c = x32 - m
+    inv = torch.rsqrt((c * c).mean(-1, keepdim=True) + 1e-5)
+    return c * inv * scale.float() + shift.float(), m, inv
+
+
+def _ln_bwd(dy, a, m, inv, scale):
+    """LN backward: (da fp32, dscale, dshift) summed over every row."""
+    xhat = (a.float() - m) * inv
+    dxhat = dy * scale.float()
+    da = inv * (dxhat - dxhat.mean(-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    rows = tuple(range(dy.dim() - 1))
+    return da, (dy * xhat).sum(rows), dy.sum(rows)
+
+
+def _maxpool_bwd(dpool, a):
+    """Backward of the max over K (dim 2) of a [B, G, K, C]: dpool [B, G, C]
+    goes wholly to the first maximal row of each column."""
+    idx = a.float().argmax(2, keepdim=True)
+    hot = torch.arange(a.shape[2], device=a.device)[None, None, :, None] == idx
+    return hot * dpool[:, :, None, :]
+
+
+def _mm(a, b, cdt):
+    """fp32 product of two operands rounded to cdt (fp32 accumulation)."""
+    return torch.matmul(a.to(cdt).float(), b.to(cdt).float())
+
+
+def _tn(a, b):
+    """sum over every leading axis of a^T b: [..., m], [..., n] -> [m, n]."""
+    return torch.matmul(a.reshape(-1, a.shape[-1]).float().t(), b.reshape(-1, b.shape[-1]).float())
+
+
+def patch_encoder_bwd_plain(grouped, params, dout, *, num_groups, group_size, cdt,
+                            act: str = "erf"):
+    """Plain torch version of kernel K7, the arithmetic of the reference's
+    ``_bwd_kernel``: the forward recomputed as K2 computes it, then the
+    backward chain with matmul operands rounded to cdt where the reference
+    rounds them (da4c, da3, da2c, da1) and fp32 accumulation.
+
+    Args:
+        grouped: [B, G*K, C_in]; params: the 12 parameters of
+            ``patch_encoder_plain``; dout: [B, G, C_out].
+
+    Returns:
+        (dgrouped [B, G*K, C_in] in grouped's dtype, 12 fp32 parameter
+        grads summed over every patch, in the parameters' shapes).
+    """
+    w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b = params
+    B = grouped.shape[0]
+    x = grouped.reshape(B, num_groups, group_size, grouped.shape[-1]).to(cdt)
+    h0 = w1a.shape[1]
+    w2_pool, w2_pt = w2a[:h0], w2a[h0:]
+    # Forward recompute.
+    a1 = _dense(x, w1a, b1a, cdt)
+    l1, m1, inv1 = _ln_stats(a1, s1, t1)
+    g1 = _act_and_grad(l1, act)[0].to(cdt)
+    a2 = _dense(g1, w1b, b1b, cdt)
+    pool = a2.amax(2).to(cdt)
+    up = _mm(a2, w2_pt, cdt) + _mm(pool, w2_pool, cdt)[:, :, None]
+    a3 = up.to(cdt) + b2a.to(cdt)
+    l3, m3, inv3 = _ln_stats(a3, s2, t2)
+    g3, dact3 = _act_and_grad(l3, act)
+    g3 = g3.to(cdt)
+    a4 = _dense(g3, w2b, b2b, cdt)
+    # Backward.
+    da4 = _maxpool_bwd(dout.float(), a4)
+    da4c = da4.to(cdt)
+    dw2b = _tn(g3, da4c)
+    db2b = da4.sum((0, 1, 2))
+    dl3 = _mm(da4c, w2b.t(), cdt) * dact3
+    da3_32, ds2, dt2 = _ln_bwd(dl3, a3, m3, inv3, s2)
+    da3 = da3_32.to(cdt)
+    da3_sum = da3_32.sum(2).to(cdt)  # [B, G, h1]
+    dw2a = torch.cat([_tn(pool, da3_sum), _tn(a2, da3)], 0)
+    db2a = da3_32.sum((0, 1, 2))
+    dpool = _mm(da3_sum, w2_pool.t(), cdt)
+    da2 = _mm(da3, w2_pt.t(), cdt) + _maxpool_bwd(dpool, a2)
+    da2c = da2.to(cdt)
+    dw1b = _tn(g1, da2c)
+    db1b = da2.sum((0, 1, 2))
+    dl1 = _mm(da2c, w1b.t(), cdt) * _act_and_grad(l1, act)[1]
+    da1_32, ds1, dt1 = _ln_bwd(dl1, a1, m1, inv1, s1)
+    da1 = da1_32.to(cdt)
+    dw1a = _tn(x, da1)
+    db1a = da1_32.sum((0, 1, 2))
+    dx = _mm(da1, w1a.t(), cdt).to(grouped.dtype).reshape(grouped.shape)
+    return dx, (dw1a, db1a, ds1, dt1, dw1b, db1b, dw2a, db2a, ds2, dt2, dw2b, db2b)
+
+
+@_cuda.counted
+def patch_encoder_bwd_cuda(grouped, params, dout, *, num_groups, group_size, cdt,
+                           act: str = "erf", need_dx: bool = True):
+    """Kernel K7 on the card; same contract as ``patch_encoder_bwd_plain``
+    (dgrouped is None when ``need_dx`` is False).
+
+    The parameter grads are summed per persistent block into an fp32
+    workspace slice, then the slices are added in a fixed order by a
+    second launch, so the grads are the same from run to run.
+    """
+    w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b = params
+    B, rows, cin = grouped.shape
+    G, K = num_groups, group_size
+    if rows != G * K:
+        raise ValueError(f"grouped has {rows} rows, expected G*K = {G * K}")
+    h0, h1, cout = w1a.shape[1], w2a.shape[1], w2b.shape[1]
+    if w1a.shape[0] != cin or w2a.shape[0] != 2 * h0 or w2b.shape[0] != h1:
+        raise ValueError("patch encoder weight shapes do not chain")
+    if dout.shape != (B, G, cout):
+        raise ValueError(f"dout shape {tuple(dout.shape)} != {(B, G, cout)}")
+    x = grouped.to(cdt).contiguous()
+    do = dout.to(cdt).contiguous()
+    # Matrices [in, out] for the forward recompute, and transposed copies
+    # [out, in] for the products with the output-side gradients.
+    mats = [w.to(cdt).contiguous() for w in (w1a, w1b, w2a, w2b)]
+    tmats = [w.to(cdt).t().contiguous() for w in (w1a, w1b, w2a[:h0], w2a[h0:], w2b)]
+    vecs = [v.float().contiguous() for v in (b1a, s1, t1, b1b, b2a, s2, t2, b2b)]
+    _cuda.require_cuda(x, do, *mats, *tmats, *vecs)
+    sizes = [p.numel() for p in params]
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    lib = _cuda.library()
+    slices = lib.psam_patch_encoder_bwd_slices(B * G)
+    work = torch.zeros((slices, sum(sizes)), dtype=torch.float32, device=x.device)
+    da2 = torch.empty((B * G * K, h0), dtype=torch.float32, device=x.device)
+    p = _cuda.ptr
+    code = lib.psam_patch_encoder_bwd(
+        p(x), p(do), B, G, K, cin,
+        p(mats[0]), p(vecs[0]), p(vecs[1]), p(vecs[2]), p(mats[1]), p(vecs[3]),
+        p(mats[2]), p(vecs[4]), p(vecs[5]), p(vecs[6]), p(mats[3]), p(vecs[7]),
+        p(tmats[0]), p(tmats[1]), p(tmats[2]), p(tmats[3]), p(tmats[4]),
+        h0, h1, cout, p(dx), p(da2), p(work), slices, p(grads), int(act == "tanh"),
+        _cuda.dtype_code(cdt), _cuda.stream())
+    _cuda.check("psam_patch_encoder_bwd", code)
+    _cuda.count_launch(patch_encoder_bwd_cuda, B=B, G=G, K=K, cin=cin, h0=h0, h1=h1,
+                       cout=cout, cdt=str(cdt), act=act, need_dx=need_dx)
+    dparams = tuple(g.view(p_.shape) for g, p_ in zip(grads.split(sizes), params))
+    if dx is not None:
+        dx = dx.to(grouped.dtype)
+    return dx, dparams
+
+
+
+class PatchEncoderFused(torch.autograd.Function):
+    """The fused PointNet with a kernel backward (``patch_encoder_fused_ad``):
+    K2 / K7 on CUDA tensors, the plain versions on CPU tensors. Saves only
+    the grouped input and the parameters; the backward recomputes the
+    hidden activations. dgrouped is computed only when it is needed."""
+
+    @staticmethod
+    def forward(ctx, grouped, num_groups, group_size, cdt, act, *params):
+        ctx.cfg = dict(num_groups=num_groups, group_size=group_size, cdt=cdt, act=act)
+        ctx.save_for_backward(grouped, *params)
+        run = patch_encoder_cuda if grouped.is_cuda else patch_encoder_plain
+        return run(grouped, params, **ctx.cfg)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grouped, *params = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        if grouped.is_cuda:
+            dx, dparams = patch_encoder_bwd_cuda(grouped, params, dout, need_dx=need_dx,
+                                                 **ctx.cfg)
+        else:
+            dx, dparams = patch_encoder_bwd_plain(grouped, params, dout, **ctx.cfg)
+        dparams = tuple(d.to(p.dtype) for d, p in zip(dparams, params))
+        return (dx if need_dx else None, None, None, None, None, *dparams)
 
 
 def patch_encoder_fused(grouped, params, *, num_groups, group_size, cdt,
                         act: str = "erf"):
-    """[B, G*K, C_in] -> [B, G, C_out]: K2 on the card, plain on the CPU."""
-    run = patch_encoder_cuda if grouped.is_cuda else patch_encoder_plain
-    return run(grouped, params, num_groups=num_groups, group_size=group_size,
-               cdt=cdt, act=act)
+    """[B, G*K, C_in] -> [B, G, C_out]: K2 (forward) and K7 (backward) on
+    the card, their plain versions on the CPU."""
+    return PatchEncoderFused.apply(grouped, num_groups, group_size, cdt, act, *params)

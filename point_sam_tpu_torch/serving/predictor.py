@@ -45,9 +45,13 @@ class Predictor:
 
     def __init__(self, model, *, device=None, point_buckets=DEFAULT_POINT_BUCKETS,
                  max_prompts: int = 64):
+        """``device``: where the model and every tensor live; ``cuda``
+        unless given (pass ``device="cpu"`` to run on the CPU). Raises when
+        no device is given and there is no card."""
+        self.device = torch.device(device or "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device: pass device="cpu" to run on the CPU')
         self.model = for_inference(model).eval()
-        self.device = torch.device(device) if device is not None else \
-            next(model.parameters()).device
         self.model.to(self.device)
         if self.model.dtype != torch.float32:
             cast_params_for_inference(self.model)

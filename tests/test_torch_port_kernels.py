@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1-K4 of point_sam_tpu_torch against their
-plain torch versions.
+"""The hand-written CUDA kernels K1-K4, K6 and K7 of point_sam_tpu_torch
+against their plain torch versions.
 
 The ``cuda``-marked tests need a card and skip without one. This file
 imports neither JAX nor the JAX package, so on a machine with a card (and
@@ -11,7 +11,12 @@ Tolerances: fp32 kernels sum in another order than torch's matmuls
 (1e-5 attention, 1e-4 for the deeper PointNet / decode-tail chains); bf16
 kernels round where the reference rounds but accumulate in another order
 (2e-2 relative, the bound the JAX package's chip smoke uses for its bf16
-kernels). K1 is exact: indices equal and d^2 bit-equal.
+kernels). K1 is exact: indices equal and d^2 bit-equal. The backward
+kernels: K6 1e-5 (fp32) / 2e-2 (bf16) of the largest grad; K7 in fp32 1e-4
+of each grad's largest entry, in bf16 5e-2 in norm (||diff|| / ||plain||):
+a 1-ulp bf16 difference in a recomputed activation (another summation
+order of a LayerNorm) can move a max-pool's first argmax to another row,
+which moves that column's whole gradient there.
 """
 
 import importlib
@@ -24,6 +29,7 @@ A = importlib.import_module("point_sam_tpu_torch.ops.attention")
 F = importlib.import_module("point_sam_tpu_torch.ops.fps")
 PE = importlib.import_module("point_sam_tpu_torch.ops.patch_encoder_pallas")
 UP = importlib.import_module("point_sam_tpu_torch.ops.upscale_pallas")
+_cuda = importlib.import_module("point_sam_tpu_torch.ops._cuda")
 
 
 def pe_params(rng, cin, h0, h1, cout):
@@ -77,9 +83,29 @@ def cuda():
     return torch.device("cuda")
 
 
+WRAPPERS = (F.fps_interp_cuda, A.mha_cuda, PE.patch_encoder_cuda, UP.interp_upscale_cuda,
+            A.mha_packed_bwd_cuda, PE.patch_encoder_bwd_cuda)
+
+
+def test_launch_counters_tally_by_shape():
+    """Each wrapper counts its launches in all and by shape and dtype."""
+    def wrapper():
+        pass
+
+    _cuda.counted(wrapper)
+    for b in (1, 2, 1):
+        _cuda.count_launch(wrapper, B=b, dtype="torch.bfloat16")
+    assert wrapper.launches == 3
+    assert wrapper.shapes == {(("B", 1), ("dtype", "torch.bfloat16")): 2,
+                              (("B", 2), ("dtype", "torch.bfloat16")): 1}
+    for w in WRAPPERS:
+        assert isinstance(w.launches, int) and isinstance(w.shapes, dict)
+
+
 def test_wrappers_refuse_cpu_tensors():
     """A kernel wrapper launches on CUDA tensors or raises; it never falls
-    back to the plain version."""
+    back to the plain version, and counts no launch."""
+    counts = [(w.launches, dict(w.shapes)) for w in WRAPPERS]
     rng = np.random.default_rng(0)
     x = to(rng.standard_normal((1, 64, 3)).astype(np.float32), "cpu")
     with pytest.raises(ValueError, match="CUDA"):
@@ -92,6 +118,15 @@ def test_wrappers_refuse_cpu_tensors():
                               group_size=8, cdt=torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         UP.interp_upscale_cuda(*to(upscale_inputs(rng), "cpu"), cdt=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.mha_packed_bwd_cuda(x, x, x, x, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        PE.patch_encoder_bwd_cuda(
+            to(rng.standard_normal((1, 32, 6)).astype(np.float32), "cpu"),
+            to(pe_params(rng, 6, 8, 16, 8), "cpu"),
+            to(rng.standard_normal((1, 4, 8)).astype(np.float32), "cpu"), num_groups=4,
+            group_size=8, cdt=torch.float32)
+    assert [(w.launches, w.shapes) for w in WRAPPERS] == counts
 
 
 @pytest.mark.cuda
@@ -150,3 +185,100 @@ def test_k4_kernel_matches_plain(cuda, dtype, tol, m, c, nq):
     got = UP.interp_upscale_cuda(h1, idx, w, params, hyper, cdt=dtype)
     assert got.dtype == torch.float32 and got.shape == (2 * m, c, nq)
     assert_rel(got, UP.interp_upscale_plain(h1, idx, w, params, hyper, cdt=dtype), tol)
+
+
+def assert_norm(got, want, rel):
+    """||got - want|| <= rel * ||want||."""
+    err = np.linalg.norm(n(got) - n(want))
+    assert err <= rel * np.linalg.norm(n(want)), (err, np.linalg.norm(n(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,dh", [(1, 100, 2, 32), (2, 130, 2, 64), (1, 77, 1, 128),
+                                      (1, 64, 1, 88)])
+def test_k6_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh):
+    rng = np.random.default_rng(6)
+    q, k, v, do = (to(rng.standard_normal((B, S, H * dh)).astype(np.float32), cuda, dtype)
+                   for _ in range(4))
+    got = A.mha_packed_bwd_cuda(q, k, v, do, H)
+    want = A.mha_packed_bwd_plain(q, k, v, do, H)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == dtype and g_.shape == q.shape
+        assert_rel(g_, w_, tol)
+
+
+def pe_bwd_case(rng, device, dtype, G, K, cin, cout, ties=False):
+    params = to(pe_params(rng, cin, 128, 512, cout), device)
+    x = rng.standard_normal((2, G, K, cin)).astype(np.float32)
+    if ties:  # duplicate neighbour rows: exact ties in every max-pool
+        x[:, :, 1] = x[:, :, 0]
+        x[:, :, 5] = x[:, :, 3]
+    x = to(x.reshape(2, G * K, cin), device, dtype)
+    do = to(rng.standard_normal((2, G, cout)).astype(np.float32), device, dtype)
+    return x, params, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+@pytest.mark.parametrize("G,K,cin,cout", [(8, 20, 6, 40), (4, 24, 4, 256), (6, 20, 6, 512)])
+def test_k7_kernel_matches_plain(cuda, dtype, act, G, K, cin, cout):
+    rng = np.random.default_rng(7)
+    x, params, do = pe_bwd_case(rng, cuda, dtype, G, K, cin, cout)
+    kw = dict(num_groups=G, group_size=K, cdt=dtype, act=act)
+    gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, **kw)
+    wdx, wdp = PE.patch_encoder_bwd_plain(x, params, do, **kw)
+    torch.cuda.synchronize()
+    assert gdx.dtype == dtype and gdx.shape == x.shape
+    for g_, w_ in zip((gdx, *gdp), (wdx, *wdp)):
+        assert g_.shape == w_.shape
+        if dtype == torch.float32:
+            assert_rel(g_, w_, 1e-4)
+        else:
+            assert_norm(g_, w_, 5e-2)
+    # dx is optional and the parameter grads do not depend on it.
+    ndx, ndp = PE.patch_encoder_bwd_cuda(x, params, do, need_dx=False, **kw)
+    assert ndx is None
+    for a, b in zip(ndp, gdp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k7_kernel_routes_ties_to_first_row(cuda):
+    rng = np.random.default_rng(8)
+    x, params, do = pe_bwd_case(rng, cuda, torch.float32, 4, 16, 6, 64, ties=True)
+    kw = dict(num_groups=4, group_size=16, cdt=torch.float32, act="erf")
+    gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, **kw)
+    wdx, wdp = PE.patch_encoder_bwd_plain(x, params, do, **kw)
+    for g_, w_ in zip((gdx, *gdp), (wdx, *wdp)):
+        assert_rel(g_, w_, 1e-4)
+    dx = n(gdx).reshape(2, 4, 16, 6)
+    # Every max of a tied pair is credited to the first row of the pair.
+    assert np.abs(dx[:, :, 1] - dx[:, :, 0]).max() > 0
+
+
+@pytest.mark.cuda
+def test_kernel_outputs_carry_grad_fn(cuda):
+    """Under autograd on the card the outputs of K2, K3 and K4 are
+    differentiable (their backward is K7, K6 and the recompute)."""
+    rng = np.random.default_rng(9)
+    q = to(rng.standard_normal((1, 64, 128)).astype(np.float32), cuda).requires_grad_()
+    out = A.mha_flat(q, q, q, 2)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    params = tuple(p.requires_grad_() for p in to(pe_params(rng, 6, 128, 512, 64), cuda))
+    x = to(rng.standard_normal((1, 4 * 16, 6)).astype(np.float32), cuda)
+    out = PE.patch_encoder_fused(x, params, num_groups=4, group_size=16, cdt=torch.float32)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert all(p.grad is not None for p in params)
+    h1, idx, w, uparams, hyper = upscale_inputs(rng, d=256)
+    h1 = to(h1, cuda).requires_grad_()
+    out = UP.interp_upscale_hyper_fused(h1, to(idx, cuda), to(w, cuda), to(uparams, cuda),
+                                        to(hyper, cuda), cdt=torch.float32)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert h1.grad is not None and torch.isfinite(h1.grad).all()

@@ -294,6 +294,9 @@ def test_cast_params_for_inference():
 def test_port_imports_no_jax():
     code = ("import sys, point_sam_tpu_torch; "
             "import point_sam_tpu_torch.serving, point_sam_tpu_torch.utils; "
+            "import point_sam_tpu_torch.train.trainer, point_sam_tpu_torch.parallel; "
+            "import point_sam_tpu_torch.datasets, point_sam_tpu_torch.ops.sampler; "
+            "import point_sam_tpu_torch.models.loss, point_sam_tpu_torch.utils.checkpoint; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('point_sam_tpu.') or m == 'point_sam_tpu']; "
             "assert not bad, bad")

@@ -38,7 +38,8 @@ def predictors():
     pm = P.PointCloudSAM(P.PointSAMConfig(vit="tiny", tokenizer=P.TokenizerConfig(32, 16)),
                          generator=torch.Generator().manual_seed(0))
     pm.load_state_dict(state_dict_from_flax(v), strict=True)
-    return JPredictor(jm, v, point_buckets=(2048,)), Predictor(pm, point_buckets=(2048,))
+    return (JPredictor(jm, v, point_buckets=(2048,)),
+            Predictor(pm, device="cpu", point_buckets=(2048,)))
 
 
 def assert_same_prediction(want, got):
@@ -101,6 +102,20 @@ def test_predictor_rules():
     assert [_next_pow2(p) for p in (1, 2, 3, 5)] == [1, 2, 4, 8]
     pm = P.PointCloudSAM(P.PointSAMConfig(vit="tiny", tokenizer=P.TokenizerConfig(32, 16)),
                          generator=torch.Generator().manual_seed(0))
-    tp = Predictor(pm)
+    tp = Predictor(pm, device="cpu")
     with pytest.raises(RuntimeError):
         tp.predict_masks(np.zeros((1, 3)), [1])
+
+
+def test_predictor_runs_on_cuda_unless_asked():
+    """Without a device the Predictor takes the card, and raises without
+    one; it never falls back to the CPU on its own."""
+    pm = P.PointCloudSAM(P.PointSAMConfig(vit="tiny", tokenizer=P.TokenizerConfig(32, 16)),
+                         generator=torch.Generator().manual_seed(0))
+    if torch.cuda.is_available():
+        assert Predictor(pm).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            Predictor(pm)
+    tp = Predictor(pm, device="cpu")
+    assert tp.device.type == "cpu" and next(tp.model.parameters()).device.type == "cpu"
