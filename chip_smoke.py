@@ -7,9 +7,11 @@ Phases, each fatal on failure (the script then exits non-zero before its
 last line):
 
 1. header: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
-2. build: compile the six kernels from point_sam_tpu_torch/csrc;
-3. end to end, tiny config, fp32: the Predictor on the CPU (plain
-   versions) and on the card (kernels), same weights, cloud and 3 clicks;
+2. build: compile the kernels from point_sam_tpu_torch/csrc (one nvcc per
+   source, all started together);
+3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs):
+   the Predictor on the CPU (plain versions) and on the card (kernels),
+   same weights, cloud and 3 clicks;
 4. the serving path: ViT-L (eva02_large) in bf16 with seeded random
    weights, a seeded 100k-point cloud (bucket 131072, G=2048, K=256),
    set_pointcloud and 3 clicks, with every kernel's launches read around
@@ -19,15 +21,31 @@ last line):
    every shape and dtype that path launched it with, on seeded inputs, both
    timed with CUDA events (median after a warm-up), with the one PyTorch
    call of the same function as a yardstick where there is one (SDPA for
-   K3; the port never calls it);
-6. tiny train step in fp32: the CPU with the plain versions against the
-   card with the kernels, same weights, batch and clicks;
-7. the training path: ViT-L through ``trainer.main`` with the reference
+   K3 and K5; the port never calls it);
+6. end to end, tiny voronoi model in fp32 (a giant-shaped ViT: fused qkv,
+   GELU MLP, D=176, 2 heads of 88, 2 blocks, so K5 runs): as 3, the card
+   with K8, K10, K5 and K4;
+7. the voronoi EVA-giant serving path: ``build_model`` of
+   configs/model/voronoi_giant.yaml (EVA-giant, 40 blocks, D=1408, 16
+   heads, MLP 6144; hidden 256, patch channels 512, decoder depth 2) on
+   the card in bf16 with seeded random weights, the Predictor over the
+   same 100k-point cloud (G=2048 by the eval rule), set_pointcloud and 3
+   clicks, launches read by shape;
+8. as 5, for every kernel of the voronoi path (K4, K5, K8, K10);
+9. tiny train step in fp32 (the ViT of 3, so K3 and K6 run): the CPU
+   with the plain versions against the card with the kernels, same
+   weights, batch and clicks;
+10. the training path: ViT-L through ``trainer.main`` with the reference
    recipe (configs/large.yaml on synthetic data: B=2, N=10,000, M=2,
    G=1024, K=256, 5 click iterations, bf16 compute, fp32 AdamW), 5 steps,
    with the launches read around that run, by shape;
-8. as 5, for every kernel of the training path (K1-K4 forward, K6 and K7
-   backward; SDPA's backward is K6's yardstick).
+11. as 5, for every kernel of the training path (K1-K4 forward, K6 and K7
+   backward; SDPA's backward is K6's yardstick);
+12. profiles under torch.profiler (device time by stage): one ViT-L train
+   step, timed on one batch before and after that profiler session, then
+   one encode of each serving path on its model built anew. They come
+   last, after every timed phase, because a profiler session slows the
+   host's launches for the rest of the process.
 
 Every kernel's bound (bound_ms) is computed here from this run's shapes:
 the larger of bytes / 3.35 TB/s and the operations over the card's peak
@@ -161,7 +179,7 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
     its ``count_launch`` recorded): seeded inputs on the card, the kernel
     and plain calls, how to compare them, the work for the bound, and the
     one PyTorch call of the same function where there is one."""
-    F, PE, A, UP = mods
+    F, PE, A, UP, IW = mods
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -182,30 +200,78 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
         return (mat(cin, h0), vec(h0), vec(h0, 1.0), vec(h0), mat(h0, h0), vec(h0),
                 mat(2 * h0, h1), vec(h1), vec(h1, 1.0), vec(h1), mat(h1, cout), vec(cout))
 
-    if name == "K1":
-        B, N, G = key["B"], key["N"], key["G"]
-        n_real = min(N, N_FLAGSHIP) if key["valid"] else N
+    def cloud(B, N, with_valid):
+        """B seeded scenes padded to N (100k real points at the serve
+        bucket), the padding at 0 as the Predictor pads; valid or None."""
+        n_real = min(N, N_FLAGSHIP) if with_valid else N
         pts = torch.zeros((B, N, 3), device=dev)
         for b in range(B):
             xyz, _ = synthetic_cloud(np.random.default_rng(b), n_real)
             pts[b, :n_real] = torch.from_numpy(xyz).to(dev)
         valid = None
-        if key["valid"]:
+        if with_valid:
             valid = torch.zeros((B, N), dtype=torch.bool, device=dev)
             valid[:, :n_real] = True
+        return pts, valid, n_real
 
-        def exact(got, want):
-            for field, a, b_ in zip(("idx", "centers", "interp_idx", "interp_d2"), got, want):
-                check(torch.equal(a, b_), f"K1 {field} differs from its plain version")
+    def exact(label, fields):
+        def compare(got, want):
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            for field, a, b_ in zip(fields, got, want):
+                check(torch.equal(a, b_), f"{label} {field} differs from its plain version")
             return 0.0
+        return compare
 
-        # ~10 fp32 operations per point per selection step (distance, min,
-        # the running argmax and best-3); the G sequential steps each end
-        # in a grid-wide sync, a latency floor the roofline does not see.
+    if name == "K1":
+        B, N, G = key["B"], key["N"], key["G"]
+        pts, valid, n_real = cloud(B, N, key["valid"])
+
+        # ~10 fp32 operations per real point per selection step (distance,
+        # min, the running argmax and best-3); the G sequential steps each
+        # end in a grid-wide sync, a latency floor the roofline does not see.
         nbytes = B * (N * (3 * 4 + (valid is not None)) + G * 16 + N * 3 * 8)
         return dict(run=lambda: F.fps_interp_cuda(pts, G, valid=valid),
-                    plain=lambda: F.fps_interp_plain(pts, G, valid=valid), compare=exact,
-                    work=(nbytes, {"fp32": 10.0 * B * N * G}))
+                    plain=lambda: F.fps_interp_plain(pts, G, valid=valid),
+                    compare=exact("K1", ("idx", "centers", "interp_idx", "interp_d2")),
+                    work=(nbytes, {"fp32": 10.0 * B * n_real * G}))
+
+    if name == "K8":
+        B, N, G = key["B"], key["N"], key["G"]
+        pts, valid, n_real = cloud(B, N, key["valid"])
+        # ~10 fp32 operations per real point per step (distance, min, the
+        # running argmax), below the same sync floor as K1.
+        nbytes = B * (N * (3 * 4 + (valid is not None)) + G * 4)
+        return dict(run=lambda: F.fps_cuda(pts, G, valid=valid),
+                    plain=lambda: F.fps_plain(pts, G, valid=valid), compare=exact("K8", ("idx",)),
+                    work=(nbytes, {"fp32": 10.0 * B * n_real * G}))
+
+    if name == "K10":
+        B, N, G = key["B"], key["N"], key["G"]
+        query, _, _ = cloud(B, N, N > N_FLAGSHIP)
+        keys = query[:, torch.randperm(min(N, N_FLAGSHIP), generator=g, device=dev)[:G]]
+
+        # Indices equal; weights within 1e-6 (only the division may round
+        # differently).
+        def same_neighbours(got, want):
+            check(torch.equal(got[0], want[0]), "K10 indices differ from its plain version")
+            err = (got[1] - want[1]).abs().max().item()
+            check(err <= 1e-6, f"K10 weights differ by {err:.3g} > 1e-6")
+            return err
+
+        # ~14 fp32 operations per (query, key) pair: 3 differences, 3
+        # multiply-adds and the best-3 compares; every query is computed.
+        return dict(run=lambda: IW.interp_weights_cuda(query, keys),
+                    plain=lambda: IW.interp_weights_plain(query, keys), compare=same_neighbours,
+                    work=(B * (N * 12 + G * 12 + N * 24), {"fp32": 14.0 * B * N * G}))
+
+    if name == "K5":
+        B, H, S, dh = key["B"], key["heads"], key["S"], key["dh"]
+        dt, elem, kind = dtype("dtype")
+        q, k, v = (randn(B, H, S, dh).to(dt) for _ in range(3))
+        return dict(run=lambda: A.mha_heads_cuda(q, k, v),
+                    plain=lambda: A.mha_heads_plain(q, k, v), compare=within("K5", 2e-2),
+                    work=(4 * B * H * S * dh * elem, {kind: 4.0 * B * H * S * S * dh}),
+                    library=lambda: sdpa(q, k, v))
 
     if name in ("K2", "K7"):
         B, G, K, cin, h0, h1, cout = (key[f] for f in ("B", "G", "K", "cin", "h0", "h1", "cout"))
@@ -333,10 +399,18 @@ def clicks(pred, xyz):
     return out
 
 
-def end_to_end_tiny(torch, np, P, Predictor, device="cuda"):
-    """Phase 3: the tiny config in fp32 on the CPU (plain) and the card."""
-    cfg = P.PointSAMConfig(vit="tiny", tokenizer=P.TokenizerConfig(32, 16))
-    cpu_model = P.PointCloudSAM(cfg, generator=torch.Generator().manual_seed(0)).eval()
+# The tiny kNN model of phases 3 and 9: D=128 in 2 heads of 64, the head
+# size the packed kernels K3 / K6 take (the "tiny" preset's 4 heads of 32
+# go head-split, to K5).
+TINY_VIT = dict(embed_dim=128, depth=2, num_heads=2, mlp_hidden_dim=256)
+
+
+def end_to_end_tiny(torch, np, cpu_model, label, counters, expect, device="cuda"):
+    """Phases 3 and 6: a tiny model in fp32 on the CPU (plain versions) and
+    on the card (kernels), same weights, cloud and 3 clicks; every kernel
+    named in ``expect`` must launch in the card's run."""
+    from point_sam_tpu_torch.serving import Predictor
+
     gpu_model = copy.deepcopy(cpu_model).to(device)
     rng = np.random.default_rng(0)
     xyz = rng.standard_normal((1200, 3)).astype(np.float32)
@@ -345,26 +419,33 @@ def end_to_end_tiny(torch, np, P, Predictor, device="cuda"):
     results = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, device)):
         pred = Predictor(model, device=dev, point_buckets=(2048,))
+        reset(counters)
         pred.set_pointcloud(xyz, rgb)
         results.append(clicks(pred, xyz))
+    torch.cuda.synchronize()
+    missing = [name for name in expect if counters[name].launches == 0]
+    check(not missing, f"{label}: kernels {missing} did not launch on the card")
     worst = 0.0
     for (wm, ws, wl), (gm, gs, gl) in zip(*results):
-        check(gl.shape == wl.shape and np.isfinite(gl).all(), "tiny e2e: bad logits")
+        check(gl.shape == wl.shape and np.isfinite(gl).all(), f"{label}: bad logits")
         dl = float(np.abs(gl - wl).max())
         worst = max(worst, dl)
-        check(dl <= 1e-3, f"tiny e2e: logits differ by {dl:.3g} > 1e-3")
-        check(float(np.abs(gs - ws).max()) <= 1e-4, "tiny e2e: scores differ > 1e-4")
+        check(dl <= 1e-3, f"{label}: logits differ by {dl:.3g} > 1e-3")
+        check(float(np.abs(gs - ws).max()) <= 1e-4, f"{label}: scores differ > 1e-4")
         sure = np.abs(wl) >= 1e-3
-        check(np.array_equal(gm[sure], wm[sure]), "tiny e2e: masks differ")
-    print(f"e2e tiny fp32: card kernels vs CPU plain, 3 clicks, max |dlogit| {worst:.3g}")
+        check(np.array_equal(gm[sure], wm[sure]), f"{label}: masks differ")
+    print(f"{label} fp32: card kernels {list(expect)} vs CPU plain, 3 clicks, "
+          f"max |dlogit| {worst:.3g}", flush=True)
 
 
-def flagship(torch, np, P, Predictor, counters):
-    """Phase 4: the serving path, ViT-L bf16 Predictor over a 100k-point
-    cloud. Returns each kernel's launches by shape in the counted run."""
-    dev = torch.device("cuda")
-    model = P.PointCloudSAM(P.PointSAMConfig(vit="eva02_large"), dtype=torch.bfloat16,
-                            device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+def serve(torch, np, model, counters, label, minimum):
+    """Phases 4 and 7: a bf16 Predictor over the seeded 100k-point cloud
+    (bucket 131072, G=2048 by the eval rule), set_pointcloud and 3 clicks
+    counted (each kernel of ``minimum`` at least that many launches), then
+    the encode and the two kinds of click timed. Returns each kernel's
+    launches by shape in the counted run."""
+    from point_sam_tpu_torch.serving import Predictor
+
     pred = Predictor(model)
     xyz, rgb = synthetic_cloud(np.random.default_rng(0), N_FLAGSHIP)
 
@@ -381,17 +462,18 @@ def flagship(torch, np, P, Predictor, counters):
     shapes = {name: dict(fn.shapes) for name, fn in counters.items() if fn.shapes}
     peak = torch.cuda.max_memory_allocated()
 
-    check(pred._state["group"] == (2048, 256), f"G/K rule gave {pred._state['group']}")
-    check(pred._state["n_pad"] == 131072, "bucket is not 131072")
+    check(pred._state["group"][0] == 2048, f"{label}: G rule gave {pred._state['group']}")
+    check(pred._state["n_pad"] == 131072, f"{label}: bucket is not 131072")
+    check(pred._state["emb"].shape == (1, 2048, 256), f"{label}: {pred._state['emb'].shape}")
+    check(bool(torch.isfinite(pred._state["emb"]).all()), f"{label}: non-finite encoding")
     for i, (m, s, lg) in enumerate(out):
         c = 3 if i == 0 else 1
         check(m.shape == (1, c, N_FLAGSHIP) and lg.shape == (1, c, N_FLAGSHIP),
-              f"click {i}: shape {lg.shape}")
-        check(s.shape == (1, c) and np.isfinite(s).all(), f"click {i}: bad scores")
-        check(np.isfinite(lg).all(), f"click {i}: non-finite logits")
-    minimum = {"K1": 1, "K2": 2, "K3": 24, "K4": 3}
+              f"{label} click {i}: shape {lg.shape}")
+        check(s.shape == (1, c) and np.isfinite(s).all(), f"{label} click {i}: bad scores")
+        check(np.isfinite(lg).all(), f"{label} click {i}: non-finite logits")
     for name, lo in minimum.items():
-        check(launches[name] >= lo, f"{name} launched {launches[name]} < {lo} times")
+        check(launches[name] >= lo, f"{label}: {name} launched {launches[name]} < {lo} times")
 
     enc_ms = time_ms(torch, lambda: pred.set_pointcloud(xyz, rgb))
     first = lambda: pred.predict_masks(xyz[10:11], [1])  # noqa: E731
@@ -399,21 +481,33 @@ def flagship(torch, np, P, Predictor, counters):
     masked = lambda: pred.predict_masks(xyz[[10, 700]], [1, 0], prev, False)  # noqa: E731
     dec_ms = time_ms(torch, first)
     dec_mask_ms = time_ms(torch, masked)
-    print(f"flagship ViT-L bf16, N={N_FLAGSHIP} (bucket 131072), G=2048, K=256: "
+    print(f"{label} bf16, N={N_FLAGSHIP} (bucket 131072), group {pred._state['group']}: "
           f"encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms/click (no mask prompt), "
           f"{dec_mask_ms:.3f} ms/click (mask prompt), peak memory "
           f"{peak / 2**30:.3f} GiB, launches {launches}", flush=True)
     return shapes
 
 
-def train_step_tiny(torch, np, P, PS, criterion):
-    """Phase 6: one tiny fp32 train step, the CPU's plain versions against
-    the card's kernels, same weights, batch and clicks. Tolerances: loss
-    1e-4 relative; each grad 1e-4 of its largest entry + 1e-6, the two
-    PointNets' 5e-3 (the card sums in another order, and a max-pool
-    near-tie within that fp32 noise moves a column's grad to another row)."""
-    cfg = P.PointSAMConfig(vit="tiny", tokenizer=P.TokenizerConfig(32, 16), prompt_iters=3,
-                           enable_mask_refinement_iterations=False)
+def profile_encode(torch, np, model, label):
+    """Phase 12: one encode of a serving path under torch.profiler, on a
+    model built anew (the timed phases keep none alive)."""
+    from point_sam_tpu_torch.serving import Predictor
+
+    pred = Predictor(model)
+    xyz, rgb = synthetic_cloud(np.random.default_rng(0), N_FLAGSHIP)
+    pred.set_pointcloud(xyz, rgb)  # warm-up
+    profile(torch, f"{label} encode", lambda: pred.set_pointcloud(xyz, rgb), ENCODE_STAGES)
+
+
+def train_step_tiny(torch, np, P, PS, criterion, counters):
+    """Phase 9: one tiny fp32 train step, the CPU's plain versions against
+    the card's kernels (K1-K4, K6 and K7 must each launch), same weights,
+    batch and clicks. Tolerances: loss 1e-4 relative; each grad 1e-4 of its
+    largest entry + 1e-6, the two PointNets' 5e-3 (the card sums in another
+    order, and a max-pool near-tie within that fp32 noise moves a column's
+    grad to another row)."""
+    cfg = P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT), tokenizer=P.TokenizerConfig(32, 16),
+                           prompt_iters=3, enable_mask_refinement_iterations=False)
     cpu_model = P.PointCloudSAM(cfg, generator=torch.Generator().manual_seed(0))
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     rng = np.random.default_rng(4)
@@ -428,6 +522,7 @@ def train_step_tiny(torch, np, P, PS, criterion):
     batch = dict(coords=coords, features=rng.random((B, N, 3)).astype(np.float32), gt_masks=gt)
     results = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+        reset(counters)
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         with torch.no_grad():
             outs = model(tb["coords"], tb["features"], tb["gt_masks"])
@@ -438,6 +533,9 @@ def train_step_tiny(torch, np, P, PS, criterion):
         grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
                  if p.grad is not None}
         results.append((outs, float(metrics["loss"]), grads))
+    torch.cuda.synchronize()
+    missing = [k for k in ("K1", "K2", "K3", "K4", "K6", "K7") if counters[k].launches == 0]
+    check(not missing, f"tiny train step: kernels {missing} did not launch on the card")
     (co, cl, cg), (go, gl, gg) = results
     for c_, g_ in zip(co, go):
         check(torch.equal(c_["prompt_coords"], g_["prompt_coords"].cpu()),
@@ -462,33 +560,31 @@ MAY_BE_ZERO = ("mask_decoder.output_hypernetworks_mlps.1.", "mask_decoder.output
                "mask_decoder.output_hypernetworks_mlps.3.", "point_encoder.point_embeddings.0.")
 
 
-# Kernel name fragments -> stage of the train step, for the profile.
-STAGES = (("K7 patch encoder bwd", ("patch_encoder_bwd", "reduce_slices")),
-          ("K2 patch encoder", ("patch_encoder",)), ("K6 attention bwd", ("attn_bwd",)),
-          ("K3 attention", ("mha_kernel",)), ("K4 decode tail", ("interp_upscale",)),
-          ("K1 FPS + 3-NN", ("fps_interp",)),
-          ("matmuls (cuBLAS)", ("gemm", "sm90_", "cutlass", "xmma", "nvjet")))
+MATMULS = ("matmuls (cuBLAS)", ("gemm", "sm90_", "cutlass", "xmma", "nvjet"))
+# Kernel name fragments -> stage, for the profiles (first match wins).
+TRAIN_STAGES = (("K7 patch encoder bwd", ("patch_encoder_bwd", "reduce_slices")),
+                ("K2 patch encoder", ("patch_encoder",)), ("K6 attention bwd", ("attn_bwd",)),
+                ("K3 attention", ("mha_kernel",)), ("K4 decode tail", ("interp_upscale",)),
+                ("K1 FPS + 3-NN", ("fps_interp",)), MATMULS)
+ENCODE_STAGES = (("K1 FPS + 3-NN", ("fps_interp_kernel<true>",)),
+                 ("K8 FPS", ("fps_interp_kernel<false>",)),
+                 ("K10 3-NN weights", ("interp_kernel",)), ("K2 patch encoder", ("patch_encoder",)),
+                 ("K3 / K5 attention", ("mha_kernel",)),
+                 ("torch scatter / gather (scatter max, gathers)", ("scatter",)), MATMULS)
 
 
-def profile_step(torch, result, cfg, seed):
-    """One more ViT-L train step under torch.profiler: device time by stage
-    (kernel names), and the device's busy share of the step's wall time."""
-    from point_sam_tpu_torch.datasets.build import BatchIterator, build_dataset
-    from point_sam_tpu_torch.parallel.train_step import train_step
-    from point_sam_tpu_torch.train.trainer import to_device
-
-    ds = build_dataset(cfg.train_dataset, seed=seed, context={"num_samples": cfg.num_samples})
-    batch = to_device(next(iter(BatchIterator(ds, 2, seed=seed))), "cuda")
-    gen = torch.Generator().manual_seed(0)
-    train_step(result["model"], result["optimizer"], batch, gen)  # warm
+def profile(torch, label, fn, stages):
+    """``fn`` once under torch.profiler: device time by stage (kernel
+    names), the largest other kernels, and the device's busy share of the
+    wall time."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        train_step(result["model"], result["optimizer"], batch, gen)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_stage = {name: 0.0 for name, _ in STAGES}
+    by_stage = {name: 0.0 for name, _ in stages}
     by_stage["other kernels"] = 0.0
     others = []
     total = 0.0
@@ -497,20 +593,51 @@ def profile_step(torch, result, cfg, seed):
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or dev_us <= 0:
             continue
         total += dev_us / 1e3
-        stage = next((n for n, keys in STAGES if any(k in ev.key for k in keys)), "other kernels")
+        stage = next((n for n, keys in stages if any(k in ev.key for k in keys)), "other kernels")
         by_stage[stage] += dev_us / 1e3
         if stage == "other kernels":
             others.append((dev_us / 1e3, ev.count, ev.key[:60]))
     split = ", ".join(f"{k} {v:.3f}" for k, v in by_stage.items())
     top = "; ".join(f"{ms:.3f} ms x{n} {name}" for ms, n, name in sorted(others, reverse=True)[:6])
-    print(f"train step profile (ms of device time): {split}; total {total:.3f} ms over "
+    print(f"{label} profile (ms of device time): {split}; total {total:.3f} ms over "
           f"{wall:.3f} ms wall under the profiler (device busy {100 * total / wall:.1f}%); "
           f"largest other kernels: {top}", flush=True)
 
 
+def profile_step(torch, result, cfg, seed):
+    """One more ViT-L train step under torch.profiler (``profile``), with
+    the step on that batch timed (host clock to the loss's sync, median of
+    4) before and after the profiler session."""
+    from point_sam_tpu_torch.datasets.build import BatchIterator, build_dataset
+    from point_sam_tpu_torch.parallel.train_step import train_step
+    from point_sam_tpu_torch.train.trainer import to_device
+
+    ds = build_dataset(cfg.train_dataset, seed=seed, context={"num_samples": cfg.num_samples})
+    batch = to_device(next(iter(BatchIterator(ds, 2, seed=seed))), "cuda")
+    gen = torch.Generator().manual_seed(0)
+
+    def step():
+        return float(train_step(result["model"], result["optimizer"], batch, gen)["loss"])
+
+    def step_ms():
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    step()  # warm
+    before = step_ms()
+    profile(torch, "train step", step, TRAIN_STAGES)
+    print(f"train step on one batch: {before:.3f} ms before the profiler session, "
+          f"{step_ms():.3f} ms after it (median of 4)", flush=True)
+
+
 def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
-    """Phase 7: the training path, the ViT-L recipe through trainer.main on
-    synthetic data. Returns each kernel's launches by shape over the run."""
+    """Phase 10: the training path, the ViT-L recipe through trainer.main on
+    synthetic data. Returns each kernel's launches by shape over the run,
+    and the step to profile."""
     run_dir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(run_dir, ignore_errors=True)
     overrides = ["train_dataset.dataset.source=synthetic", "val_freq=0", f"max_steps={steps}",
@@ -542,13 +669,12 @@ def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
     for name, lo in minimum.items():
         check(per_step[name] >= lo, f"training: {name} launched {per_step[name]} < {lo} per step")
     step_ms = statistics.median(h["ms"] for h in hist[1:])
-    profile_step(torch, result, cfg, seed)
     print(f"train ViT-L (configs/large.yaml, synthetic): B=2, N=10000, M=2, G=1024, K=256, "
           f"5 click iterations, bf16 compute: {steps} steps, losses "
           f"{[round(h['loss'], 4) for h in hist]}, step {step_ms:.3f} ms (median of steps "
           f"2-{steps}; first {hist[0]['ms']:.1f} ms), peak memory {peak / 2**30:.3f} GiB, "
           f"launches per step {per_step}", flush=True)
-    return shapes
+    return shapes, lambda: profile_step(torch, result, cfg, seed)
 
 
 def main() -> int:
@@ -573,7 +699,6 @@ def main() -> int:
     from point_sam_tpu_torch import parallel as PS
     from point_sam_tpu_torch.models.loss import criterion
     from point_sam_tpu_torch.ops import _cuda
-    from point_sam_tpu_torch.serving import Predictor
     from point_sam_tpu_torch.train import trainer
     from point_sam_tpu_torch.utils.config import build_model, load_config
 
@@ -583,19 +708,53 @@ def main() -> int:
           flush=True)
 
     mods = [importlib.import_module(f"point_sam_tpu_torch.ops.{m}")
-            for m in ("fps", "patch_encoder_pallas", "attention", "upscale_pallas")]
-    F, PE, A, UP = mods
+            for m in ("fps", "patch_encoder_pallas", "attention", "upscale_pallas",
+                      "interp_pallas")]
+    F, PE, A, UP, IW = mods
     counters = {"K1": F.fps_interp_cuda, "K2": PE.patch_encoder_cuda, "K3": A.mha_cuda,
-                "K4": UP.interp_upscale_cuda, "K6": A.mha_packed_bwd_cuda,
-                "K7": PE.patch_encoder_bwd_cuda}
-    end_to_end_tiny(torch, np, P, Predictor)
-    serve = flagship(torch, np, P, Predictor, counters)
-    rows = check_kernels(torch, np, mods, serve, "serve")
-    train_step_tiny(torch, np, P, PS, criterion)
-    train = train_vit_l(torch, trainer, build_model, load_config, counters)
+                "K4": UP.interp_upscale_cuda, "K5": A.mha_heads_cuda,
+                "K6": A.mha_packed_bwd_cuda, "K7": PE.patch_encoder_bwd_cuda,
+                "K8": F.fps_cuda, "K10": IW.interp_weights_cuda}
+    dev = torch.device("cuda")
+
+    tiny = P.PointCloudSAM(P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT),
+                                            tokenizer=P.TokenizerConfig(32, 16)),
+                           generator=torch.Generator().manual_seed(0)).eval()
+    end_to_end_tiny(torch, np, tiny, "e2e tiny", counters, ("K1", "K2", "K3", "K4"))
+
+    def vit_l():
+        return P.PointCloudSAM(P.PointSAMConfig(vit="eva02_large"), dtype=torch.bfloat16,
+                               device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+
+    def giant():
+        return build_model(load_config("voronoi_giant").model, device="cuda",
+                           generator=torch.Generator(device=dev).manual_seed(0))
+
+    rows = check_kernels(torch, np, mods,
+                         serve(torch, np, vit_l(), counters, "flagship ViT-L",
+                               {"K1": 1, "K2": 2, "K3": 24, "K4": 3}), "serve")
+    torch.cuda.empty_cache()
+
+    giant_vit = P.ViTConfig(176, 2, 2, 352, swiglu=False, qkv_fused=True)
+    tiny_nn = P.PointCloudSAMNN(P.VoronoiConfig(vit=giant_vit, num_patches=32),
+                                generator=torch.Generator().manual_seed(0)).eval()
+    end_to_end_tiny(torch, np, tiny_nn, "e2e tiny voronoi", counters, ("K4", "K5", "K8", "K10"))
+    voronoi = serve(torch, np, giant(), counters, "voronoi EVA-giant",
+                    {"K4": 3, "K5": 40, "K8": 1, "K10": 1})
+    k5 = sum(voronoi["K5"].values())
+    check(k5 == 40, f"voronoi EVA-giant: K5 launched {k5} times, not once per block (40)")
+    torch.cuda.empty_cache()
+    rows += check_kernels(torch, np, mods, voronoi, "voronoi")
+
+    train_step_tiny(torch, np, P, PS, criterion, counters)
+    train, train_profile = train_vit_l(torch, trainer, build_model, load_config, counters)
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, train, "train")
     check({r["kernel"] for r in rows} == set(counters), "a kernel was checked on no path")
+
+    train_profile()
+    profile_encode(torch, np, vit_l(), "flagship ViT-L")
+    profile_encode(torch, np, giant(), "voronoi EVA-giant")
 
     meta = {
         "K1": ("fps_interp", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:138"),
@@ -603,9 +762,12 @@ def main() -> int:
                "point_sam_tpu/ops/patch_encoder_pallas.py:135"),
         "K3": ("attention", "attention.cu", "point_sam_tpu/ops/attention.py:178"),
         "K4": ("interp_upscale", "upscale.cu", "point_sam_tpu/ops/upscale_pallas.py:177"),
+        "K5": ("attention_heads", "attention.cu", "point_sam_tpu/ops/attention.py:41"),
         "K6": ("attention_bwd", "attention_bwd.cu", "point_sam_tpu/ops/attention.py:327"),
         "K7": ("patch_encoder_bwd", "patch_encoder_bwd.cu",
                "point_sam_tpu/ops/patch_encoder_pallas.py:484"),
+        "K8": ("fps", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:65"),
+        "K10": ("interp_weights", "interp.cu", "point_sam_tpu/ops/interp_pallas.py:33"),
     }
     # One row per kernel, path and launch shape: its launches, error, times
     # and bound all belong to that shape on that path.

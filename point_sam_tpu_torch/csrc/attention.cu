@@ -1,18 +1,27 @@
-// K3: dense unmasked multi-head softmax attention on [B, S, D] projections.
+// K3: dense unmasked multi-head softmax attention on [B, S, D] projections,
+// and K5: the same on head-split [B, H, S, dh] tensors.
 //
-// Replaces point_sam_tpu/ops/attention.py::mha_packed_pallas
-// (_mha_packed_kernel): per head, softmax(q k^T * scale) v with fp32
-// logits and softmax, the scale folded into q when it is a power of two
-// (exact), and the normalisation applied after the PV product.
+// K3 replaces point_sam_tpu/ops/attention.py::mha_packed_pallas
+// (_mha_packed_kernel), K5 replaces mha_pallas (_mha_kernel), the
+// head-split kernel the JAX package takes for head sizes other than 64 and
+// 128 (EVA-giant: D=1408, 16 heads, dh=88). Both compute, per head,
+// softmax(q k^T * scale) v with fp32 logits and softmax, the scale folded
+// into q when it is a power of two (exact; 1/sqrt(88) is not, so K5 at
+// dh=88 scales the fp32 logits), e rounded to v's dtype before the PV
+// product, and the normalisation applied after it. The two entries share
+// the kernels below; they differ only in addressing: a (batch, head) tile
+// starts at b * bstride + h * hstride and its rows are ld elements apart
+// ([B, S, D]: S*D, dh, D; [B, H, S, dh]: H*S*dh, S*dh, dh).
 //
 // What bounds it on the H100: at the ViT-L shape (S=2048, dh=64, 16 heads)
 // the [S, S] logits per head are 16 MB in fp32; written to device memory
 // they would make the layer bandwidth-bound, so they never leave the SM,
 // and the two S x S x dh products (17 GFLOP per call) bound it.
+// K5 at the EVA-giant shape ([1, 16, 2048, 88]) does 23.6 GFLOP per call.
 // Design: one block per (batch, head, 64-query tile) streams 64-key tiles
-// of K and V straight from the [B, S, D] layout (head offset and row
-// stride, no transposes) into shared memory and keeps an online fp32
-// softmax (running max and sum per query row).
+// of K and V straight from either layout (head offset and row stride, no
+// transposes) into shared memory and keeps an online fp32 softmax (running
+// max and sum per query row).
 // - bf16: each of the 4 warps owns 16 query rows; Q K^T and P V run on the
 //   tensor cores (WMMA 16x16x16, fp32 accumulation), the softmax of the
 //   warp's rows in fp32 on the CUDA cores, and the output accumulator
@@ -20,7 +29,7 @@
 // - fp32: plain FMA; each thread owns 4 query rows x 8 key columns of a
 //   tile and 4 rows x dh/8 output columns.
 // Any S (ragged last tiles are masked) and any dh <= 128 (zero-padded to
-// 32, 64 or 128).
+// 32, 64, 96 or 128; dh=88 runs at 96).
 #include <mma.h>
 
 #include <type_traits>
@@ -36,7 +45,8 @@ constexpr int kThreads = 128;
 template <typename T, int DHP>
 __global__ void __launch_bounds__(kThreads)
 mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, int S, int D, int dh, float scale, int fold) {
+           T* __restrict__ o, int S, size_t bstride, size_t hstride, int D, int dh,
+           float scale, int fold) {
   using namespace psam;
   constexpr int LD = DHP + 1;
   constexpr int LP = kBK + 1;
@@ -51,7 +61,7 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int g = tid & 7;    // key / output column group
   const int rg = tid >> 3;  // query row group (rows rg + 16 i)
   const int q0 = blockIdx.x * kBQ;
-  const size_t base = (size_t)blockIdx.z * S * D + (size_t)blockIdx.y * dh;
+  const size_t base = blockIdx.z * bstride + blockIdx.y * hstride;  // D: row stride
 
   for (int e = tid; e < kBQ * DHP; e += kThreads) {
     const int r = e / DHP, c = e % DHP;
@@ -170,8 +180,8 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 template <int DHP>
 __global__ void __launch_bounds__(kThreads)
 mha_kernel_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int D,
-              int dh, float scale, int fold) {
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
+              size_t bstride, size_t hstride, int D, int dh, float scale, int fold) {
   using namespace nvcuda;
   using bf16 = __nv_bfloat16;
   constexpr int LDB = DHP + 8, LDS = kBK + 4, LDP = kBK + 8, LDO = DHP + 4;
@@ -187,12 +197,13 @@ mha_kernel_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kBQ;
-  const size_t base = (size_t)blockIdx.z * S * D + (size_t)blockIdx.y * dh;
-  const bool vec = (dh & 7) == 0 && (D & 7) == 0;  // 16-byte row segments
+  const size_t base = blockIdx.z * bstride + blockIdx.y * hstride;  // D: row stride
+  // 16-byte row segments (every tile start is then 16-byte aligned too).
+  const bool vec = (dh & 7) == 0 && (D & 7) == 0 && (hstride & 7) == 0 && (bstride & 7) == 0;
 
   // Load a [64 x DHP] tile (rows r0.., zero past S and past dh).
   auto load_tile = [&](const bf16* src, int r0, bf16* dst, bool scale_q) {
-    if (vec && !scale_q) {
+    if (vec && !(scale_q && fold)) {
       for (int e = tid; e < 64 * (DHP / 8); e += kThreads) {
         const int r = e / (DHP / 8), c = (e % (DHP / 8)) * 8;
         uint4 val = make_uint4(0, 0, 0, 0);
@@ -298,7 +309,7 @@ mha_kernel_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 
 template <typename T, int DHP>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int dh,
-           float scale, int fold, cudaStream_t stream) {
+           size_t bstride, size_t hstride, int ld, float scale, int fold, cudaStream_t stream) {
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const size_t smem = (size_t)(3 * 64 * (DHP + 8)) * 2 + (size_t)kBQ * (kBK + 4) * 4 +
@@ -308,7 +319,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
     if (err != cudaSuccess) return (int)err;
     mha_kernel_tc<DHP><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), S, H * dh, dh, scale, fold);
+        static_cast<T*>(o), S, bstride, hstride, ld, dh, scale, fold);
     return (int)cudaGetLastError();
   } else {
     const size_t smem = (size_t)(3 * kBQ * (DHP + 1) + kBQ * (kBK + 1)) * sizeof(float);
@@ -317,28 +328,51 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
     if (err != cudaSuccess) return (int)err;
     mha_kernel<T, DHP><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), S, H * dh, dh, scale, fold);
+        static_cast<T*>(o), S, bstride, hstride, ld, dh, scale, fold);
     return (int)cudaGetLastError();
   }
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int dh,
-             float scale, int fold, cudaStream_t stream) {
-  if (dh <= 32) return launch<T, 32>(q, k, v, o, B, S, H, dh, scale, fold, stream);
-  if (dh <= 64) return launch<T, 64>(q, k, v, o, B, S, H, dh, scale, fold, stream);
-  return launch<T, 128>(q, k, v, o, B, S, H, dh, scale, fold, stream);
+             size_t bstride, size_t hstride, int ld, float scale, int fold,
+             cudaStream_t stream) {
+  if (dh <= 32)
+    return launch<T, 32>(q, k, v, o, B, S, H, dh, bstride, hstride, ld, scale, fold, stream);
+  if (dh <= 64)
+    return launch<T, 64>(q, k, v, o, B, S, H, dh, bstride, hstride, ld, scale, fold, stream);
+  if (dh <= 96)
+    return launch<T, 96>(q, k, v, o, B, S, H, dh, bstride, hstride, ld, scale, fold, stream);
+  return launch<T, 128>(q, k, v, o, B, S, H, dh, bstride, hstride, ld, scale, fold, stream);
+}
+
+int run(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int dh,
+        size_t bstride, size_t hstride, int ld, float scale, int fold, int dtype,
+        void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh > 128) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, dh, bstride, hstride, ld, scale, fold,
+                                   st);
+  return dispatch<float>(q, k, v, o, B, S, H, dh, bstride, hstride, ld, scale, fold, st);
 }
 
 }  // namespace
 
-// q, k, v, o: [B, S, H * dh] contiguous, dtype float32 (dtype 0) or
+// K3. q, k, v, o: [B, S, H * dh] contiguous, dtype float32 (dtype 0) or
 // bfloat16 (dtype 1). fold != 0: scale is a power of two, applied to q.
 extern "C" int psam_attention(const void* q, const void* k, const void* v, void* o, int B,
                               int S, int H, int dh, float scale, int fold, int dtype,
                               void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh > 128) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, dh, scale, fold, st);
-  return dispatch<float>(q, k, v, o, B, S, H, dh, scale, fold, st);
+  const size_t D = (size_t)H * dh;
+  return run(q, k, v, o, B, S, H, dh, (size_t)S * D, (size_t)dh, (int)D, scale, fold, dtype,
+             stream);
+}
+
+// K5. q, k, v, o: [B, H, S, dh] contiguous; the rest as psam_attention.
+extern "C" int psam_attention_heads(const void* q, const void* k, const void* v, void* o,
+                                    int B, int H, int S, int dh, float scale, int fold,
+                                    int dtype, void* stream) {
+  return run(q, k, v, o, B, S, H, dh, (size_t)H * S * dh, (size_t)S * dh, dh, scale, fold,
+             dtype, stream);
 }

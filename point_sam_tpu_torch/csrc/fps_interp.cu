@@ -1,8 +1,13 @@
-// K1: farthest point sampling fused with the exact 3-NN interp search.
+// K1: farthest point sampling fused with the exact 3-NN interp search, and
+// K8: the same selection loop alone.
 //
-// Replaces point_sam_tpu/ops/fps_pallas.py::fps_interp_pallas
-// (_fps_interp_kernel). Per batch row: G sequential selection steps from the
-// first valid point (padding at -inf, max value wins, the smallest index
+// K1 replaces point_sam_tpu/ops/fps_pallas.py::fps_interp_pallas
+// (_fps_interp_kernel); K8 replaces fps_pallas (_fps_kernel), the
+// selection-only FPS of the voronoi tokenizer: the same kernel with the
+// best-3 state, its per-step updates and its outputs compiled out
+// (template flag kInterp), so a block keeps 16 B per point instead of 40.
+//
+// Per batch row: G sequential selection steps from the first valid point (padding at -inf, max value wins, the smallest index
 // wins ties), the selected centres, and for every point its 3 nearest
 // selected centres (running best-3 over the distance fields the selection
 // loop computes anyway; strict < so equal distances keep the earlier slot).
@@ -19,7 +24,7 @@
 // passes, so the last centre's distances also reach the best-3. A row's
 // points must fit the shared memory of the co-resident blocks (40 B each:
 // about 765k points per row on an H100 at B=1); beyond that the launch is
-// refused and the wrapper raises.
+// refused and the wrapper raises. K8 fits about 1.9M points per row.
 //
 // Bit-exactness: indices equal the JAX fps_xla / Pallas kernel only if d^2
 // has the same bits. XLA compiles the reference's (dx^2 + dy^2) + dz^2 into
@@ -70,6 +75,7 @@ __device__ void block_argmax(float& v, int& i, float* sv, int* si) {
   __syncthreads();
 }
 
+template <bool kInterp>
 __global__ void __launch_bounds__(kThreads)
 fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict__ valid,
                   const int* __restrict__ first, int N, int G, int chunk, int nblk,
@@ -103,8 +109,10 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
     sz[p] = P[3 * n + 2];
     const bool ok = valid == nullptr || valid[(size_t)b * N + n];
     smind[p] = ok ? INFINITY : -INFINITY;
-    bd0[p] = bd1[p] = bd2[p] = INFINITY;
-    bi0[p] = bi1[p] = bi2[p] = 0;
+    if (kInterp) {
+      bd0[p] = bd1[p] = bd2[p] = INFINITY;
+      bi0[p] = bi1[p] = bi2[p] = 0;
+    }
   }
   __syncthreads();
 
@@ -113,6 +121,9 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
     const float cx = P[3 * sel], cy = P[3 * sel + 1], cz = P[3 * sel + 2];
     if (blk == 0 && tid == 0) {
       idx_out[(size_t)b * G + g] = sel;
+    }
+    if (!kInterp && g + 1 == G) break;  // K8 needs no distance pass after the last pick
+    if (kInterp && blk == 0 && tid == 0) {
       float* c = centers_out + ((size_t)b * G + g) * 3;
       c[0] = cx;
       c[1] = cy;
@@ -127,7 +138,7 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
       const float d = __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
       const float m = fminf(smind[p], d);
       smind[p] = m;
-      if (d < bd2[p]) {
+      if (kInterp && d < bd2[p]) {
         if (d < bd1[p]) {
           bd2[p] = bd1[p];
           bi2[p] = bi1[p];
@@ -147,7 +158,7 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
       }
       if (better(m, start + p, bv, bi)) { bv = m; bi = start + p; }
     }
-    if (g + 1 == G) break;  // the last pass only feeds the best-3
+    if (g + 1 == G) break;  // the last pass only feeds the best-3 (K1)
 
     block_argmax(bv, bi, red_v, red_i);
     // Double-buffered candidates: a fast block writing step g+1 never
@@ -170,6 +181,7 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
     sel = bi;
   }
 
+  if (!kInterp) return;
   for (int p = tid; p < cnt; p += blockDim.x) {
     const size_t o = ((size_t)b * N + start + p) * 3;
     interp_idx[o] = bi0[p];
@@ -181,16 +193,10 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
   }
 }
 
-}  // namespace
-
-// pts [B, N, 3] f32; valid [B, N] uint8 or NULL; first [B] int32 (first
-// valid index per row); outputs idx [B, G] int32, centers [B, G, 3] f32,
-// interp_idx [B, N, 3] int32, interp_d2 [B, N, 3] f32; cand_v / cand_i are
-// scratch of 2 * B * 4096 entries each.
-extern "C" int psam_fps_interp(const void* pts, const void* valid, const void* first, int B,
-                               int N, int G, void* idx_out, void* centers_out,
-                               void* interp_idx, void* interp_d2, void* cand_v, void* cand_i,
-                               void* stream) {
+template <bool kInterp>
+int launch(const void* pts, const void* valid, const void* first, int B, int N, int G,
+           void* idx_out, void* centers_out, void* interp_idx, void* interp_d2, void* cand_v,
+           void* cand_i, void* stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -198,12 +204,13 @@ extern "C" int psam_fps_interp(const void* pts, const void* valid, const void* f
   int nblk = (N + kThreads - 1) / kThreads;
   nblk = max(1, min(nblk, sms / B));
   int chunk = (N + nblk - 1) / nblk;
-  const size_t smem = (size_t)chunk * 10 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fps_interp_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = (size_t)chunk * (kInterp ? 10 : 4) * sizeof(float);
+  auto* kernel = fps_interp_kernel<kInterp>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int occ = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fps_interp_kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (nblk > kMaxBlocksPerRow || (long long)occ * sms < (long long)nblk * B)
     return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -219,9 +226,30 @@ extern "C" int psam_fps_interp(const void* pts, const void* valid, const void* f
   int* p_ci = static_cast<int*>(cand_i);
   void* args[] = {&p_pts, &p_valid, &p_first, &N, &G, &chunk, &nblk,
                   &p_idx, &p_ctr, &p_iidx, &p_id2, &p_cv, &p_ci};
-  err = cudaLaunchCooperativeKernel((const void*)fps_interp_kernel, dim3(nblk, B),
-                                    dim3(kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblk, B), dim3(kThreads), args,
+                                    smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// pts [B, N, 3] f32; valid [B, N] uint8 or NULL; first [B] int32 (first
+// valid index per row); outputs idx [B, G] int32, centers [B, G, 3] f32,
+// interp_idx [B, N, 3] int32, interp_d2 [B, N, 3] f32; cand_v / cand_i are
+// scratch of 2 * B * 4096 entries each.
+extern "C" int psam_fps_interp(const void* pts, const void* valid, const void* first, int B,
+                               int N, int G, void* idx_out, void* centers_out,
+                               void* interp_idx, void* interp_d2, void* cand_v, void* cand_i,
+                               void* stream) {
+  return launch<true>(pts, valid, first, B, N, G, idx_out, centers_out, interp_idx, interp_d2,
+                      cand_v, cand_i, stream);
+}
+
+// K8: the selection alone. Same arguments as psam_fps_interp without the
+// centres and the 3-NN outputs; idx [B, G] int32.
+extern "C" int psam_fps(const void* pts, const void* valid, const void* first, int B, int N,
+                        int G, void* idx_out, void* cand_v, void* cand_i, void* stream) {
+  return launch<false>(pts, valid, first, B, N, G, idx_out, nullptr, nullptr, nullptr, cand_v,
+                       cand_i, stream);
 }

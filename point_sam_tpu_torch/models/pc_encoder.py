@@ -7,7 +7,10 @@ models/tokenizer.py, computed once per cloud.
 
 Unlike the JAX tree (``params/patch_embed``), the patch embed lives under
 ``pc_encoder.patch_embed`` here, which is where the reference's state dict
-keeps it.
+keeps it. ``PatchEmbedNN`` is the voronoi variant's: per-point MLP blocks,
+a segment max onto the centres, per-centre MLP blocks. The JAX converter
+has no torch keys for it, so its keys follow the flax module names
+(``in_proj``, ``blocks1_{i}``, ``blocks2_{i}``, ``norm``, ``out_proj``).
 """
 
 from __future__ import annotations
@@ -17,8 +20,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import group_points
-from .layers import CoordMLP, Dense
+from ..ops import group_points, group_voronoi, scatter_max
+from .layers import GELU, CoordMLP, Dense, LayerNorm
 from .patch_encoder import PatchEncoder
 from .tokenizer import TokenizerConfig
 from .vit import ViT, ViTConfig
@@ -47,19 +50,73 @@ class PatchEmbed(nn.Module):
         return self.patch_encoder(group_feats)
 
 
+class PreLNBlock(nn.Module):
+    """x + Dense(LN(GELU(Dense(LN(x))))), the residual block of the voronoi
+    patch embed (reference pc_encoder.py:148-162)."""
+
+    def __init__(self, dim: int, *, dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.norm = LayerNorm(dim, dtype=dtype, device=device)
+        self.fc1 = Dense(dim, dim, **kw)
+        self.act = GELU()
+        self.mid_norm = LayerNorm(dim, dtype=dtype, device=device)
+        self.fc2 = Dense(dim, dim, **kw)
+
+    def forward(self, x):
+        return x + self.fc2(self.mid_norm(self.act(self.fc1(self.norm(x)))))
+
+
+class PatchEmbedNN(nn.Module):
+    """Voronoi tokenizer: per-point MLP blocks, segment max onto the
+    centres, per-centre MLP blocks (reference pc_encoder.py:148-198).
+
+    The segment count is the geometry's centre count, so a per-scene G (the
+    Predictor's N > 30000 rule) embeds every centre."""
+
+    def __init__(self, in_channels: int = 3, hidden_dim: int = 256, out_channels: int = 512,
+                 *, dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.dtype = dtype
+        self.in_proj = Dense(4 + in_channels, hidden_dim, **kw)
+        for i in range(3):
+            self.add_module(f"blocks1_{i}", PreLNBlock(hidden_dim, **kw))
+        for i in range(3):
+            self.add_module(f"blocks2_{i}", PreLNBlock(hidden_dim, **kw))
+        self.norm = LayerNorm(hidden_dim, dtype=dtype, device=device)
+        self.out_proj = Dense(hidden_dim, out_channels, **kw)
+
+    def forward(self, coords, features, geom: dict) -> torch.Tensor:
+        """coords [B, N, 3], features [B, N, C], geom from
+        ``compute_geometry_voronoi`` -> [B, G, out_channels]."""
+        x = self.in_proj(group_voronoi(coords, features, geom["centers"], geom["nn_idx"]))
+        for i in range(3):
+            x = getattr(self, f"blocks1_{i}")(x)
+        if geom.get("point_valid") is not None:  # padded points never win the max
+            x = x.masked_fill(~geom["point_valid"][..., None], float("-inf"))
+        y = scatter_max(x, geom["nn_idx"], geom["centers"].shape[1])
+        for i in range(3):
+            y = getattr(self, f"blocks2_{i}")(y)
+        return self.out_proj(self.norm(y))
+
+
 class PointCloudEncoder(nn.Module):
     """Patch embed -> ViT -> per-patch embeddings [B, G, embed_dim]
     (reference pc_encoder.py:84-145)."""
 
-    def __init__(self, vit_cfg: ViTConfig, tokenizer: TokenizerConfig, *,
+    def __init__(self, vit_cfg: ViTConfig, tokenizer: TokenizerConfig | None = None, *,
                  in_channels: int = 3, embed_dim: int = 256,
                  patch_embed_channels: int = 512, act: str = "erf",
+                 patch_embed: nn.Module | None = None,
                  dtype=torch.float32, device=None, generator=None):
+        """``patch_embed``: the variant's patch embed module; without one,
+        the kNN ``PatchEmbed`` of ``tokenizer``."""
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.dtype = dtype
-        self.patch_embed = PatchEmbed(tokenizer, in_channels, patch_embed_channels,
-                                      act=act, **kw)
+        self.patch_embed = patch_embed or PatchEmbed(tokenizer, in_channels,
+                                                     patch_embed_channels, act=act, **kw)
         self.patch_proj = Dense(patch_embed_channels, vit_cfg.embed_dim, **kw)
         self.pos_embed = CoordMLP(128, vit_cfg.embed_dim, **kw)
         self.transformer = ViT(vit_cfg, **kw)

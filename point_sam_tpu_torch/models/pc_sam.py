@@ -86,11 +86,25 @@ class PointCloudSAM(nn.Module):
             cfg.embed_dim, cfg.num_multimask_outputs, depth=cfg.decoder_depth,
             num_heads=cfg.decoder_num_heads, mlp_dim=cfg.decoder_mlp_dim, **kw)
 
-    def make_geometry(self, coords, *, point_valid=None, tokenizer=None) -> dict:
-        """Parameter-free tokenizer geometry (serving may override the
-        tokenizer per scene)."""
-        return compute_geometry(coords, tokenizer or self.cfg.tokenizer,
-                                point_valid=point_valid)
+    @property
+    def default_grouping(self) -> tuple[int, int]:
+        """(G centres, K neighbours per centre) of the model's tokenizer."""
+        return self.cfg.tokenizer.num_patches, self.cfg.tokenizer.patch_size
+
+    def make_geometry(self, coords, *, point_valid=None, group_number=None,
+                      group_size=None) -> dict:
+        """Parameter-free tokenizer geometry; serving may override G and K
+        per scene."""
+        tok = self.cfg.tokenizer
+        tok = dataclasses.replace(tok, num_patches=group_number or tok.num_patches,
+                                  patch_size=group_size or tok.patch_size)
+        return compute_geometry(coords, tok, point_valid=point_valid)
+
+    def prompt_cache(self, coords, geom) -> dict:
+        """The click-invariant half of the mask-prompt features, cached in
+        ``geom`` once per cloud: each centre's neighbour offsets."""
+        return dict(mask_rel_xyz=mask_group_rel_xyz(coords, geom["centers"], geom["knn_idx"],
+                                                    radius=self.mask_encoder.radius))
 
     def encode(self, coords, features, geom):
         """Returns (pc_embeddings [B, G, D], pc_pe [B, G, D])."""
@@ -148,8 +162,7 @@ class PointCloudSAM(nn.Module):
         pc_embeddings, pc_pe = self.encode(coords, features, geom)
         # Geometry only: the mask prompt's neighbour offsets, once for all
         # iterations.
-        geom["mask_rel_xyz"] = mask_group_rel_xyz(coords, geom["centers"], geom["knn_idx"],
-                                                  radius=self.mask_encoder.radius)
+        geom.update(self.prompt_cache(coords, geom))
         return _click_loop(self, pc_embeddings, pc_pe, coords, geom, gt_masks,
                            is_eval=is_eval, point_valid=point_valid, generator=generator)
 

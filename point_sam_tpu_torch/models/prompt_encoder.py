@@ -8,6 +8,11 @@ point_sam_tpu/models/prompt_encoder.py).
 - ``MaskEncoder``: previous mask logits regrouped onto the encoder's
   centres / kNN and PointNet-encoded (kernel K2 on the card); a learned
   ``no_mask_embed`` when there is no mask prompt.
+- ``MaskEncoderNN``: the voronoi variant's mask encoder, per-point
+  [logit, offset to the centre, its length] -> Dense -> segment max onto
+  the centres -> residual MLP stack. The JAX converter has no torch keys
+  for it, so its keys follow the flax module names (``first_nn``,
+  ``res_in``, ``res_in_norm``, ``res_{i}``, ``res_{i}_norm``, ``res_out``).
 
 Padded click slots are encoded like real ones; the decoder's attention
 masks neutralise them.
@@ -21,8 +26,14 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import batch_index_select, group_features, group_points, repeat_interleave
-from .layers import Embedding, normal_
+from ..ops import (
+    batch_index_select,
+    group_features,
+    group_points,
+    repeat_interleave,
+    scatter_max,
+)
+from .layers import GELU, Dense, Embedding, LayerNorm, normal_
 from .patch_encoder import PatchEncoder
 
 
@@ -108,3 +119,61 @@ def mask_group_rel_xyz(coords, centers, knn_idx, radius=None):
     if radius is not None:
         nbr = nbr / radius
     return nbr
+
+
+def mask_nbr_dist(coords, centers, nn_idx):
+    """Click-invariant half of the voronoi mask-prompt features: each
+    point's offset from its centre and its length ([B, N, 3], [B, N, 1]),
+    computed as ``MaskEncoderNN`` computes them inline, so cached and
+    uncached outputs are bit-equal."""
+    nbr = coords - batch_index_select(centers, nn_idx, axis=1)
+    return nbr, torch.linalg.vector_norm(nbr, dim=-1, keepdim=True)
+
+
+class MaskEncoderNN(nn.Module):
+    """Voronoi mask prompt encoder (reference prompt_encoder.py:248-300)."""
+
+    def __init__(self, embed_dim: int = 256, hidden_dim: int = 1024, *, dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.embed_dim = embed_dim
+        self.dtype = dtype
+        self.no_mask_embed = Embedding(1, embed_dim, device=device, generator=generator)
+        self.first_nn = Dense(5, hidden_dim, **kw)
+        self.res_in = Dense(hidden_dim, hidden_dim, **kw)
+        self.res_in_norm = LayerNorm(hidden_dim, dtype=dtype, device=device)
+        for i in range(3):
+            self.add_module(f"res_{i}", Dense(hidden_dim, hidden_dim, **kw))
+            self.add_module(f"res_{i}_norm", LayerNorm(hidden_dim, dtype=dtype, device=device))
+        self.res_out = Dense(hidden_dim, embed_dim, **kw)
+        self.act = GELU()
+
+    def forward(self, masks, coords, centers, nn_idx, point_valid=None, nbr_dist=None):
+        """masks [B*M, N] logits or None; coords [B, N, 3]; centers [B, L, 3];
+        nn_idx [B, N] voronoi assignment; point_valid [B, N] padding mask
+        (padded points never win the per-centre max) -> [B*M or B, L, D].
+
+        nbr_dist: optional cached (nbr, dist) from ``mask_nbr_dist``; the
+        output is bit-identical with or without it. The segment count is
+        the geometry's centre count L."""
+        B, L = centers.shape[:2]
+        if masks is None:
+            return self.no_mask_embed.weight[0].to(self.dtype).expand(B, L, self.embed_dim)
+        masks = masks.detach()
+        repeats = masks.shape[0] // coords.shape[0]
+        nbr, dist = nbr_dist if nbr_dist is not None else mask_nbr_dist(coords, centers, nn_idx)
+        if repeats > 1:
+            nbr, dist, nn_idx = (repeat_interleave(t, repeats, axis=0)
+                                 for t in (nbr, dist, nn_idx))
+        feats = torch.cat([masks[..., None].to(nbr.dtype), nbr, dist], dim=-1)  # [BM, N, 5]
+        x = self.first_nn(feats)
+        if point_valid is not None:
+            pv = repeat_interleave(point_valid, x.shape[0] // point_valid.shape[0], axis=0)
+            x = x.masked_fill(~pv[..., None], float("-inf"))
+        y = scatter_max(x, nn_idx, L)  # [BM, L, hidden]
+        h = self.act(self.res_in_norm(self.res_in(y)))
+        for i in range(3):
+            r = getattr(self, f"res_{i}_norm")(getattr(self, f"res_{i}")(h))
+            h = h + self.act(r)
+        return self.res_out(h)

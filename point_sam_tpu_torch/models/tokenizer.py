@@ -1,9 +1,10 @@
 """Point-cloud tokenizer geometry (counterpart of point_sam_tpu/models/tokenizer.py).
 
-Pure functions of the coordinates: FPS centres, per-centre kNN indices and
-the per-point 3-NN interpolation weights, computed once per cloud and
-reused by every decode. ``point_valid`` padding masks let one bucket size
-serve any N up to it.
+Pure functions of the coordinates: FPS centres, per-centre kNN indices
+(kNN tokenizer) or each point's nearest centre (voronoi tokenizer), and the
+per-point 3-NN interpolation weights, computed once per cloud and reused
+by every decode. ``point_valid`` padding masks let one bucket size serve
+any N up to it.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import dataclasses
 
 import torch
 
-from ..ops import batch_index_select, fps, fps_with_interp, knn
+from ..ops import batch_index_select, compute_interp_weights, fps, fps_with_interp, knn, nn1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,4 +61,31 @@ def compute_geometry(
     out = dict(fps_idx=fps_idx, centers=centers, knn_idx=knn_idx)
     if with_interp:
         out["interp_index"], out["interp_weight"] = idx, w
+    return out
+
+
+@torch.no_grad()
+def compute_geometry_voronoi(
+    coords: torch.Tensor,
+    num_patches: int,
+    *,
+    point_valid: torch.Tensor | None = None,
+    with_interp: bool = True,
+) -> dict:
+    """FPS centres (kernel K8 on the card) + each point's nearest centre
+    (reference NNGrouper, common.py:198-201) + (optionally) the 3-NN interp
+    weights (kernel K10 on the card).
+
+    Returns dict(fps_idx [B,G], centers [B,G,3], nn_idx [B,N],
+                 point_valid [B,N] or None, interp_index [B,N,3],
+                 interp_weight [B,N,3]); point_valid rides along so the
+    segment-max consumers can keep padded points out of the per-centre max.
+    """
+    coords = coords.float()
+    fps_idx = fps(coords, num_patches, valid=point_valid)
+    centers = batch_index_select(coords, fps_idx, axis=1)
+    _, nn_idx = nn1(coords, centers)
+    out = dict(fps_idx=fps_idx, centers=centers, nn_idx=nn_idx, point_valid=point_valid)
+    if with_interp:
+        out["interp_index"], out["interp_weight"] = compute_interp_weights(coords, centers)
     return out

@@ -2,13 +2,16 @@
 
 The block stack + final norm of timm's Eva as the reference uses it (no
 rotary embedding, no mask, no cls token; pc_encoder.py:138-142):
-pre-norm attention with separate q/k/v projections (biased q and v,
-bias-free k), then a pre-norm SwiGLU MLP with an inner LayerNorm (sub-LN).
-Attention runs through ``ops.mha_flat`` (kernel K3 on the card).
 
-The blocks are one ``nn.ModuleList`` named ``blocks``, so state-dict keys
-are ``blocks.{i}....`` as in timm. The EVA-giant preset (fused qkv, plain
-GELU MLP) comes with the variants.
+- pre-norm attention: separate q/k/v projections with biased q and v and a
+  bias-free k (EVA02), or one fused qkv projection with separate q and v
+  biases (EVA-giant, timm's ``qkv.weight`` / ``q_bias`` / ``v_bias``);
+- pre-norm MLP: SwiGLU with an inner LayerNorm, sub-LN (EVA02), or a plain
+  GELU MLP (EVA-giant).
+
+Attention runs through ``ops.mha_flat``: kernel K3 at EVA02's head size 64,
+kernel K5 at EVA-giant's 88. The blocks are one ``nn.ModuleList`` named
+``blocks``, so state-dict keys are ``blocks.{i}....`` as in timm.
 """
 
 from __future__ import annotations
@@ -29,16 +32,20 @@ class ViTConfig:
     depth: int
     num_heads: int
     mlp_hidden_dim: int
+    swiglu: bool = True  # SwiGLU MLP with its sub-LN (EVA02) vs plain GELU MLP (EVA-giant)
+    qkv_fused: bool = False  # fused qkv projection (EVA-giant)
 
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
 
 
-# hidden = int(dim * 4 * 2/3) for the SwiGLU EVA02 family (timm).
+# hidden = int(dim * 4 * 2/3) for the SwiGLU EVA02 family (timm); EVA-giant
+# has a plain MLP of hidden 6144.
 VIT_PRESETS: dict[str, ViTConfig] = {
     "eva02_base": ViTConfig(768, 12, 12, int(768 * 4 * 2 / 3)),
     "eva02_large": ViTConfig(1024, 24, 16, int(1024 * 4 * 2 / 3)),
+    "eva_giant": ViTConfig(1408, 40, 16, 6144, swiglu=False, qkv_fused=True),
     # Small config for tests.
     "tiny": ViTConfig(128, 2, 4, 256),
 }
@@ -55,15 +62,29 @@ class EvaAttention(nn.Module):
         super().__init__()
         D = cfg.embed_dim
         kw = dict(dtype=dtype, device=device, generator=generator)
-        self.q_proj = Dense(D, D, **kw)
-        self.k_proj = Dense(D, D, bias=False, **kw)
-        self.v_proj = Dense(D, D, **kw)
+        self.dtype = dtype
+        self.qkv_fused = cfg.qkv_fused
+        if cfg.qkv_fused:
+            # timm's layout: F.linear(x, qkv.weight, cat(q_bias, 0, v_bias)).
+            self.qkv = Dense(D, 3 * D, bias=False, **kw)
+            self.q_bias = nn.Parameter(torch.zeros(D, device=device))
+            self.v_bias = nn.Parameter(torch.zeros(D, device=device))
+        else:
+            self.q_proj = Dense(D, D, **kw)
+            self.k_proj = Dense(D, D, bias=False, **kw)
+            self.v_proj = Dense(D, D, **kw)
         self.proj = Dense(D, D, **kw)
         self.num_heads = cfg.num_heads
 
     def forward(self, x):
-        out = mha_flat(self.q_proj(x), self.k_proj(x), self.v_proj(x), self.num_heads)
-        return self.proj(out)
+        if self.qkv_fused:
+            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+            qkv = F.linear(x.to(self.dtype), self.qkv.weight.to(self.dtype),
+                           bias.to(self.dtype))
+            q, k, v = qkv.chunk(3, dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        return self.proj(mha_flat(q, k, v, self.num_heads))
 
 
 class SwiGLU(nn.Module):
@@ -78,7 +99,21 @@ class SwiGLU(nn.Module):
         self.fc2 = Dense(hidden_dim, dim, **kw)
 
     def forward(self, x):
-        return self.fc2(self.norm(F.silu(self.fc1_g(x)) * self.fc1_x(x)))
+        h = F.silu(self.fc1_g(x)) * self.fc1_x(x)
+        return self.fc2(self.norm(h))
+
+
+class GeluMLP(nn.Module):
+    """Dense -> exact GELU -> Dense (EVA-giant)."""
+
+    def __init__(self, dim, hidden_dim, *, dtype, device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.fc1 = Dense(dim, hidden_dim, **kw)
+        self.fc2 = Dense(hidden_dim, dim, **kw)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
 
 
 class EvaBlock(nn.Module):
@@ -90,7 +125,10 @@ class EvaBlock(nn.Module):
         self.norm1 = LayerNorm(D, dtype=dtype, device=device)
         self.attn = EvaAttention(cfg, **kw)
         self.norm2 = LayerNorm(D, dtype=dtype, device=device)
-        self.mlp = SwiGLU(D, cfg.mlp_hidden_dim, **kw)
+        if cfg.swiglu:
+            self.mlp = SwiGLU(D, cfg.mlp_hidden_dim, **kw)
+        else:
+            self.mlp = GeluMLP(D, cfg.mlp_hidden_dim, **kw)
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x))

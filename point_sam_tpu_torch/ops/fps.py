@@ -2,7 +2,10 @@
 
 ``fps`` has the semantics of the JAX ``fps_xla``: iterative farthest-point
 selection over fp32 coordinates from the first valid point; padded points
-sit at -inf and are never selected; ties go to the smallest index.
+sit at -inf and are never selected; ties go to the smallest index. On a
+CUDA tensor it launches kernel K8 (``csrc/fps_interp.cu`` in its
+selection-only mode, replacing ``ops/fps_pallas.py::fps_pallas``); on a
+CPU tensor it runs ``fps_plain``, the same loop step by step in torch.
 
 ``fps_with_interp`` also returns the selected centres and, for every
 point, its 3 nearest centres with normalised inverse-square-distance
@@ -18,17 +21,21 @@ import torch
 from . import _cuda
 
 
-def fps_sq_dist(points: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """Squared distance of every point to one centre, [B, N, 3] x [B, 3]
-    -> [B, N], with the exact fp32 bits of the JAX reference as XLA
-    compiles it: fma(dz, dz, fma(dx, dx, dy * dy)). (XLA contracts the
-    explicit-difference sum into these two FMAs; kernel K1 writes them with
-    __fmaf_rn.) An fp32 FMA is emulated in fp64, where the product of two
-    fp32 values is exact."""
-    d = points - center[:, None, :]
+def fma_sq_norm(d: torch.Tensor) -> torch.Tensor:
+    """Squared norm of fp32 differences [..., 3] with the exact fp32 bits
+    of the JAX reference as XLA compiles its explicit-difference sums (FPS
+    and the 3-NN interp kernel alike): fma(dz, dz, fma(dx, dx, dy * dy)).
+    Kernels K1, K8 and K10 write these two FMAs with __fmaf_rn. An fp32 FMA
+    is emulated in fp64, where the product of two fp32 values is exact."""
     dx, dz = d[..., 0].double(), d[..., 2].double()
     inner = (dx * dx + (d[..., 1] * d[..., 1]).double()).float()
     return (dz * dz + inner.double()).float()
+
+
+def fps_sq_dist(points: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """Squared distance of every point to one centre, [B, N, 3] x [B, 3]
+    -> [B, N] (``fma_sq_norm`` of the differences)."""
+    return fma_sq_norm(points - center[:, None, :])
 
 
 def _init_min_dist(points: torch.Tensor, valid: torch.Tensor | None):
@@ -45,9 +52,10 @@ def _center(points: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return torch.gather(points, 1, sel[:, None, None].expand(-1, 1, 3))[:, 0]
 
 
-def fps(points: torch.Tensor, num_samples: int, *,
-        valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Sample ``num_samples`` farthest-point indices per batch row.
+def fps_plain(points: torch.Tensor, num_samples: int, *,
+              valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch version of kernel K8: sample ``num_samples``
+    farthest-point indices per batch row.
 
     Args:
         points: [B, N, 3] coordinates (computed in fp32).
@@ -68,12 +76,60 @@ def fps(points: torch.Tensor, num_samples: int, *,
     return torch.stack(out, dim=1).int()
 
 
+def _first_valid(points: torch.Tensor, valid: torch.Tensor | None):
+    """(valid as uint8 or None, first valid index per row, int32)."""
+    if valid is None:
+        return None, torch.zeros(points.shape[0], dtype=torch.int32, device=points.device)
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    return valid_u8, valid_u8.argmax(dim=1).int()
+
+
+def _candidates(B: int, device):
+    """Scratch of the kernels' double-buffered per-block candidates."""
+    return (torch.empty(2 * B * 4096, dtype=torch.float32, device=device),
+            torch.empty(2 * B * 4096, dtype=torch.int32, device=device))
+
+
+@_cuda.counted
+def fps_cuda(points: torch.Tensor, num_samples: int, *,
+             valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel K8 on the card; same indices as ``fps_plain``."""
+    points = points.float().contiguous()
+    _cuda.require_cuda(points)
+    B, N, _ = points.shape
+    valid_u8, first = _first_valid(points, valid)
+    idx = torch.empty((B, num_samples), dtype=torch.int32, device=points.device)
+    cand_v, cand_i = _candidates(B, points.device)
+    code = _cuda.library().psam_fps(
+        _cuda.ptr(points), _cuda.ptr(valid_u8), _cuda.ptr(first), B, N, num_samples,
+        _cuda.ptr(idx), _cuda.ptr(cand_v), _cuda.ptr(cand_i), _cuda.stream())
+    _cuda.check("psam_fps", code)
+    _cuda.count_launch(fps_cuda, B=B, N=N, G=num_samples, valid=valid is not None)
+    return idx
+
+
+def fps(points: torch.Tensor, num_samples: int, *,
+        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Farthest point sampling: K8 on the card, ``fps_plain`` on the CPU.
+
+    Args:
+        points: [B, N, 3] coordinates (computed in fp32).
+        num_samples: G.
+        valid: optional [B, N] bool mask of real points.
+
+    Returns:
+        [B, G] int32 indices into N.
+    """
+    run = fps_cuda if points.is_cuda else fps_plain
+    return run(points, num_samples, valid=valid)
+
+
 def fps_interp_plain(points: torch.Tensor, num_samples: int, *,
                      valid: torch.Tensor | None = None):
     """Plain torch version of kernel K1 (the CPU path and the reference the
     kernel is held against).
 
-    Same selection as ``fps``; every step's distance field also updates a
+    Same selection as ``fps_plain``; every step's distance field also updates a
     running best-3 per point (strict <, so ties keep the earlier slot), and
     one extra pass folds in the last centre's distances.
 
@@ -117,19 +173,13 @@ def fps_interp_cuda(points: torch.Tensor, num_samples: int, *,
     _cuda.require_cuda(points)
     B, N, _ = points.shape
     dev = points.device
-    if valid is None:
-        first = torch.zeros(B, dtype=torch.int32, device=dev)
-        valid_u8 = None
-    else:
-        valid_u8 = valid.to(torch.uint8).contiguous()
-        first = valid_u8.argmax(dim=1).int()
+    valid_u8, first = _first_valid(points, valid)
     G = num_samples
     idx = torch.empty((B, G), dtype=torch.int32, device=dev)
     centers = torch.empty((B, G, 3), dtype=torch.float32, device=dev)
     interp_idx = torch.empty((B, N, 3), dtype=torch.int32, device=dev)
     interp_d2 = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
-    cand_v = torch.empty(2 * B * 4096, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(2 * B * 4096, dtype=torch.int32, device=dev)
+    cand_v, cand_i = _candidates(B, dev)
     code = _cuda.library().psam_fps_interp(
         _cuda.ptr(points), _cuda.ptr(valid_u8), _cuda.ptr(first), B, N, G,
         _cuda.ptr(idx), _cuda.ptr(centers), _cuda.ptr(interp_idx),

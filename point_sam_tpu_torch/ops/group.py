@@ -115,3 +115,21 @@ def group_features(features: torch.Tensor, knn_idx: torch.Tensor) -> torch.Tenso
     return nbr.reshape(B, G, K, repeats, C).permute(0, 3, 1, 2, 4).reshape(
         BM, G, K, C
     )
+
+
+def group_voronoi(xyz: torch.Tensor, features: torch.Tensor, centers: torch.Tensor,
+                  nn_idx: torch.Tensor, *, eps: float = 1e-8) -> torch.Tensor:
+    """Per-point voronoi features [unit_dir, dist, features]: each point's
+    offset from its centre as a unit direction and a length.
+
+    Args:
+        xyz: [B, N, 3]. features: [B, N, C]. centers: [B, L, 3].
+        nn_idx: [B, N] index of each point's nearest centre.
+
+    Returns:
+        [B, N, 3 + 1 + C].
+    """
+    nbr_xyz = xyz - batch_index_select(centers, nn_idx, axis=1)
+    dist = torch.linalg.vector_norm(nbr_xyz, dim=-1, keepdim=True)
+    unit = nbr_xyz / torch.clamp_min(dist, eps)
+    return torch.cat([unit, dist, features.to(unit.dtype)], dim=-1)

@@ -1,30 +1,32 @@
 """3-NN inverse-square-distance interpolation (counterpart of
-point_sam_tpu/ops/interp.py). Plain torch."""
+point_sam_tpu/ops/interp.py).
+
+``compute_interp_weights`` is the JAX function's k=3, unmasked case, the
+only one the port calls: kernel K10 on a CUDA tensor, its plain version on
+a CPU tensor (``ops/interp_pallas.py``). Both rank by the Pallas kernel's
+explicit-difference distances, as the JAX package does on the TPU; off the
+TPU it takes its kNN expansion instead, which agrees with them wherever no
+two keys are within fp32 rounding of a tie.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from .group import batch_index_select
-from .knn import knn
+from .interp_pallas import interp_weights_cuda, interp_weights_plain
 
 
-def compute_interp_weights(
-    query: torch.Tensor,
-    key: torch.Tensor,
-    k: int = 3,
-    eps: float = 1e-8,
-    *,
-    key_valid: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Weights 1 / max(d^2, eps) over the k nearest keys, normalised.
+def compute_interp_weights(query: torch.Tensor, key: torch.Tensor,
+                           eps: float = 1e-8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weights 1 / max(d^2, eps) over the 3 nearest keys, normalised.
 
     Returns:
-        (indices [B, Nq, k] int32, weights [B, Nq, k]).
+        (indices [B, Nq, 3] int32, weights [B, Nq, 3] f32).
     """
-    d2, idx = knn(query, key, k, key_valid=key_valid)
-    inv = 1.0 / torch.clamp_min(d2, eps)
-    return idx, inv / inv.sum(-1, keepdim=True)
+    if query.is_cuda:
+        return interp_weights_cuda(query, key, eps=eps)
+    return interp_weights_plain(query, key, eps=eps)
 
 
 def interpolate_features(x: torch.Tensor, index: torch.Tensor,

@@ -60,11 +60,12 @@ def _tiled_knn(query, key, k, key_valid, key_tile):
 def _small_k_single(query, key, k, key_valid):
     d2 = _mask_invalid(sq_dist(query, key), key_valid)
     ds, idxs = [], []
-    for _ in range(k):
+    for j in range(k):
         d, i = d2.min(dim=-1)  # first index among equal minima
         ds.append(d)
         idxs.append(i.int())
-        d2 = d2.scatter(-1, i[..., None], _INF)
+        if j + 1 < k:
+            d2 = d2.scatter(-1, i[..., None], _INF)
     return torch.stack(ds, -1), torch.stack(idxs, -1)
 
 
@@ -80,6 +81,14 @@ def _small_k_knn(query, key, k, key_valid, *, query_tile: int = 8192):
     ]
     return (torch.cat([p[0] for p in parts], dim=-2),
             torch.cat([p[1] for p in parts], dim=-2))
+
+
+def nn1(query: torch.Tensor, key: torch.Tensor, *,
+        key_valid: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single nearest neighbour, squeezed (the voronoi assignment of each
+    point to its centre): ([B, Nq] squared distances, [B, Nq] int32)."""
+    d, i = knn(query, key, 1, key_valid=key_valid)
+    return d[..., 0], i[..., 0]
 
 
 def knn(

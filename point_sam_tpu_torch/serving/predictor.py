@@ -4,11 +4,13 @@ point_sam_tpu/serving/predictor.py).
 - The point count N is padded up to a size bucket and the prompt count P
   to a power of two, as in the JAX predictor, so both packages see the
   same shapes and padding.
-- The tokenizer geometry (FPS centres, kNN, 3-NN interp weights and the
-  click-invariant mask-prompt rel-coords) is computed once per cloud in
-  ``set_pointcloud`` and reused by every decode.
+- The tokenizer geometry (FPS centres, kNN or the voronoi assignment,
+  3-NN interp weights and the click-invariant half of the mask-prompt
+  features) is computed once per cloud in ``set_pointcloud`` and reused by
+  every decode.
 - Default grouping follows the reference eval rule: N > 30000 -> G=2048,
-  K=256; otherwise the model's own tokenizer (G capped by the cloud).
+  K=256; otherwise the model's own G (capped by the cloud) and K. A
+  voronoi model (``PointCloudSAMNN``) has no K and reads only G.
 
 Every tensor stays on the predictor's ``device``; results come back as
 numpy arrays, like the JAX predictor's.
@@ -20,8 +22,6 @@ import numpy as np
 import torch
 
 from ..models.pc_sam import cast_params_for_inference, for_inference
-from ..models.prompt_encoder import mask_group_rel_xyz
-from ..models.tokenizer import TokenizerConfig
 
 DEFAULT_POINT_BUCKETS = (2048, 8192, 32768, 131072, 524288)
 
@@ -41,7 +41,8 @@ def _next_pow2(n: int, lo: int = 1) -> int:
 
 
 class Predictor:
-    """Interactive single-cloud predictor over a PointCloudSAM model."""
+    """Interactive single-cloud predictor over a PointCloudSAM or
+    PointCloudSAMNN model."""
 
     def __init__(self, model, *, device=None, point_buckets=DEFAULT_POINT_BUCKETS,
                  max_prompts: int = 64):
@@ -85,14 +86,15 @@ class Predictor:
             self._scale = float(np.linalg.norm(xyz, axis=1).max()) or 1.0
             xyz = xyz / self._scale
 
-        tok = self.model.cfg.tokenizer
+        default_g, default_k = self.model.default_grouping
         if group_number is None:
             if n > 30000:
                 group_number, group_size = 2048, 256
             else:
-                group_number = min(tok.num_patches, _next_pow2(n, 64))
-                group_size = group_size or tok.patch_size
-        group_size = min(group_size or tok.patch_size, n)
+                group_number = min(default_g, _next_pow2(n, 64))
+        group = dict(group_number=group_number)
+        if default_k is not None:  # a voronoi model has no K
+            group["group_size"] = min(group_size or default_k, n)
 
         n_pad = _next_bucket(n, self.point_buckets)
         coords = np.zeros((1, n_pad, 3), np.float32)
@@ -104,16 +106,11 @@ class Predictor:
         coords_t, feats_t, valid_t = (self._tensor(coords), self._tensor(feats),
                                       self._tensor(valid))
 
-        tokenizer = TokenizerConfig(num_patches=group_number, patch_size=group_size,
-                                    radius=tok.radius,
-                                    centralize_features=tok.centralize_features)
-        geom = self.model.make_geometry(coords_t, point_valid=valid_t, tokenizer=tokenizer)
-        # The click-invariant half of the mask-prompt grouping, once per
-        # cloud (the flagship MaskEncoder has no radius).
-        geom["mask_rel_xyz"] = mask_group_rel_xyz(coords_t, geom["centers"], geom["knn_idx"])
+        geom = self.model.make_geometry(coords_t, point_valid=valid_t, **group)
+        geom.update(self.model.prompt_cache(coords_t, geom))
         emb, pc_pe = self.model.encode(coords_t, feats_t, geom)
         self._state = dict(n=n, n_pad=n_pad, coords=coords_t, emb=emb, pc_pe=pc_pe,
-                           geom=geom, group=(group_number, group_size))
+                           geom=geom, group=(group_number, group.get("group_size")))
 
     @torch.inference_mode()
     def predict_masks(self, prompt_points: np.ndarray, prompt_labels: np.ndarray,

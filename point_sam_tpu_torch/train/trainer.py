@@ -70,6 +70,10 @@ def main(argv=None) -> dict:
     seed = cfg.get("seed", 42)
     if cfg.get("pretrained_ckpt_path"):
         raise NotImplementedError("pretrained initialisation is not ported yet (ROADMAP.md)")
+    if cfg.model.get("variant", "knn") != "knn":
+        raise NotImplementedError(
+            f"training variant {cfg.model['variant']!r} is not ported yet (ROADMAP.md "
+            "queue 1: voronoi training, then the hier variant)")
 
     model = build_model(cfg.model, device=device,
                         generator=torch.Generator(device).manual_seed(seed))

@@ -145,39 +145,41 @@ def _deep_merge(base: dict, extra: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Model factory: the model group (configs/model/*.yaml) onto PointSAMConfig.
+# Model factory: the model group (configs/model/*.yaml) onto PointSAMConfig
+# or VoronoiConfig.
 # --------------------------------------------------------------------------
 
 
 def build_model(model_cfg: dict, *, dtype=None, device=None, generator=None):
-    """A PointCloudSAM from a model config dict (``variant: knn``).
+    """A PointCloudSAM (``variant: knn``) or PointCloudSAMNN (``variant:
+    voronoi``) from a model config dict; ``variant: hier`` is not ported.
 
     ``dtype`` is the compute dtype (parameters stay fp32): bf16 on a CUDA
     device and fp32 elsewhere unless given.
     """
     import torch
 
-    from ..models import PointCloudSAM, PointSAMConfig, TokenizerConfig
+    from ..models import (
+        PointCloudSAM,
+        PointCloudSAMNN,
+        PointSAMConfig,
+        TokenizerConfig,
+        VoronoiConfig,
+    )
 
     mc = dict(model_cfg)
     variant = mc.pop("variant", "knn")
-    if variant in ("voronoi", "hier"):
+    if variant == "hier":
         raise NotImplementedError(
-            f"model variant {variant!r} is not ported yet (ROADMAP.md queue 1, item 8)")
-    if variant != "knn":
+            "model variant 'hier' is not ported yet (ROADMAP.md queue 1, the hier variant)")
+    if variant not in ("knn", "voronoi"):
         raise ValueError(f"unknown model variant {variant!r}")
     if dtype is None:
         dtype = torch.bfloat16 if torch.device(device or "cpu").type == "cuda" else torch.float32
     dec = mc.pop("decoder", {})
     tok = mc.pop("tokenizer", {})
-    cfg = PointSAMConfig(
+    common = dict(
         vit=mc.pop("vit", "eva02_large"),
-        tokenizer=TokenizerConfig(
-            num_patches=tok.get("num_patches", 512),
-            patch_size=tok.get("patch_size", 64),
-            radius=tok.get("radius"),
-            centralize_features=tok.get("centralize_features", False),
-        ),
         embed_dim=mc.pop("embed_dim", 256),
         patch_embed_channels=mc.pop("patch_embed_channels", 512),
         num_multimask_outputs=mc.pop("num_multimask_outputs", 3),
@@ -186,8 +188,25 @@ def build_model(model_cfg: dict, *, dtype=None, device=None, generator=None):
         decoder_mlp_dim=dec.get("mlp_dim", 2048),
         prompt_iters=mc.pop("prompt_iters", 5),
         enable_mask_refinement_iterations=mc.pop("enable_mask_refinement_iterations", True),
-        patch_act=mc.pop("patch_act", "erf"),
     )
+    patch_act = mc.pop("patch_act", "erf")
+    if variant != "knn" and patch_act != "erf":
+        raise ValueError(f"patch_act={patch_act!r} requires variant 'knn'")
     if mc:
         raise ValueError(f"unused model config keys: {sorted(mc)}")
-    return PointCloudSAM(cfg, dtype=dtype, device=device, generator=generator)
+    kw = dict(dtype=dtype, device=device, generator=generator)
+    if variant == "voronoi":
+        cfg = VoronoiConfig(num_patches=tok.get("num_patches", 1024),
+                            hidden_dim=tok.get("hidden_dim", 256), **common)
+        return PointCloudSAMNN(cfg, **kw)
+    cfg = PointSAMConfig(
+        tokenizer=TokenizerConfig(
+            num_patches=tok.get("num_patches", 512),
+            patch_size=tok.get("patch_size", 64),
+            radius=tok.get("radius"),
+            centralize_features=tok.get("centralize_features", False),
+        ),
+        patch_act=patch_act,
+        **common,
+    )
+    return PointCloudSAM(cfg, **kw)

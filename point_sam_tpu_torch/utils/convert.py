@@ -10,8 +10,18 @@ the JAX converter's rules: flax ``kernel`` [in, out] -> ``weight``
 ``label_embed`` rows -> ``point_embeddings.{i}.weight``; ``no_mask_embed``
 [D] -> [1, D].
 
+The EVA-giant blocks: the fused ``attn/qkv/kernel`` becomes timm's
+``attn.qkv.weight``, and the thirds of ``attn/qkv/bias`` become
+``attn.q_bias`` and ``attn.v_bias``; timm has no k bias, so a non-zero k
+third raises instead of being dropped.
+
 The key table is this module's own (the port imports nothing of the JAX
 package); the tests hold it against ``point_sam_tpu.utils.convert.map_torch_key``.
+The JAX converter has no rules for the voronoi variant's ``PatchEmbedNN``
+and ``MaskEncoderNN``; their torch keys follow the flax module names under
+the port's module paths (``params/patch_embed/blocks1_0/fc1`` ->
+``pc_encoder.patch_embed.blocks1_0.fc1``, ``params/mask_encoder/res_in``
+-> ``mask_encoder.res_in``).
 """
 
 from __future__ import annotations
@@ -36,7 +46,8 @@ _MODULE_RULES = [
     (r"params/pc_encoder/pos_embed/Dense_1", "pc_encoder.pos_embed.2"),
     (r"params/pc_encoder/transformer/blocks_(\d+)/(norm[12])/LayerNorm_0", r"pc_encoder.transformer.blocks.\1.\2"),
     (r"params/pc_encoder/transformer/blocks_(\d+)/attn/(q_proj|k_proj|v_proj|proj)", r"pc_encoder.transformer.blocks.\1.attn.\2"),
-    (r"params/pc_encoder/transformer/blocks_(\d+)/mlp/(fc1_g|fc1_x|fc2)", r"pc_encoder.transformer.blocks.\1.mlp.\2"),
+    (r"params/pc_encoder/transformer/blocks_(\d+)/attn/qkv", r"pc_encoder.transformer.blocks.\1.attn.qkv"),
+    (r"params/pc_encoder/transformer/blocks_(\d+)/mlp/(fc1_g|fc1_x|fc1|fc2)", r"pc_encoder.transformer.blocks.\1.mlp.\2"),
     (r"params/pc_encoder/transformer/blocks_(\d+)/mlp/norm/LayerNorm_0", r"pc_encoder.transformer.blocks.\1.mlp.norm"),
     (r"params/pc_encoder/transformer/norm/LayerNorm_0", "pc_encoder.transformer.norm"),
     (r"params/pc_encoder/out_proj", "pc_encoder.out_proj"),
@@ -53,6 +64,13 @@ _MODULE_RULES = [
     (r"params/mask_decoder/output_upscaling/Dense_1", "mask_decoder.output_upscaling.3"),
     (r"params/mask_decoder/hyper_mlp_(\d+)/Dense_(\d+)", r"mask_decoder.output_hypernetworks_mlps.\1.layers.\2"),
     (r"params/mask_decoder/iou_prediction_head/Dense_(\d+)", r"mask_decoder.iou_prediction_head.layers.\1"),
+    # Voronoi variant (no JAX converter rules: flax module names).
+    (r"params/patch_embed/(in_proj|out_proj)", r"pc_encoder.patch_embed.\1"),
+    (r"params/patch_embed/(blocks[12]_\d+)/(fc1|fc2)", r"pc_encoder.patch_embed.\1.\2"),
+    (r"params/patch_embed/(blocks[12]_\d+)/(norm|mid_norm)/LayerNorm_0", r"pc_encoder.patch_embed.\1.\2"),
+    (r"params/patch_embed/norm/LayerNorm_0", "pc_encoder.patch_embed.norm"),
+    (r"params/mask_encoder/(first_nn|res_in|res_\d|res_out)", r"mask_encoder.\1"),
+    (r"params/mask_encoder/(res_in_norm|res_\d_norm)/LayerNorm_0", r"mask_encoder.\1"),
 ]
 _MODULE_RULES = [(re.compile(p + "$"), t) for p, t in _MODULE_RULES]
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
@@ -66,6 +84,8 @@ _LEAF_RULES = {
     "params/mask_decoder/mask_tokens": "mask_decoder.mask_tokens.weight",
 }
 _LABEL_EMBED = "params/point_encoder/label_embed"
+# The thirds of a fused qkv bias (``.../attn/qkv/q_bias`` names the q third).
+_QKV_BIAS = re.compile(r"params/pc_encoder/transformer/blocks_(\d+)/attn/qkv/(q_bias|v_bias)$")
 _STACKED = re.compile(r"(.*)/blocks/block/(.*)")
 _INDEXED = re.compile(r"(.*)\[(\d+)\]$")
 
@@ -78,6 +98,9 @@ def torch_key_for(flax_path: str) -> str:
         return f"point_encoder.point_embeddings.{m.group(2)}.weight"
     if flax_path in _LEAF_RULES:
         return _LEAF_RULES[flax_path]
+    m = _QKV_BIAS.match(flax_path)
+    if m:
+        return f"pc_encoder.transformer.blocks.{m.group(1)}.attn.{m.group(2)}"
     module, _, leaf = flax_path.rpartition("/")
     for pat, tmpl in _MODULE_RULES:
         mm = pat.match(module)
@@ -122,6 +145,15 @@ def state_dict_from_flax(variables) -> dict[str, torch.Tensor]:
         if path == _LABEL_EMBED:
             for i in range(arr.shape[0]):
                 sd[torch_key_for(f"{path}[{i}]")] = arr[i][None]
+            continue
+        if path.endswith("/attn/qkv/bias"):  # [q | k | v] thirds of a fused bias
+            d = arr.shape[0] // 3
+            if np.any(arr[d:2 * d] != 0):
+                raise ValueError(f"{path}: the k third of a fused qkv bias is not zero, "
+                                 "and timm's layout has no k bias to carry it")
+            base = path[:-len("/bias")]
+            sd[torch_key_for(f"{base}/q_bias")] = arr[:d]
+            sd[torch_key_for(f"{base}/v_bias")] = arr[2 * d:]
             continue
         if path == "params/mask_encoder/no_mask_embed":
             arr = arr[None]

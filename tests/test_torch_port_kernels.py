@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K4, K6 and K7 of point_sam_tpu_torch
+"""The hand-written CUDA kernels K1-K8 and K10 of point_sam_tpu_torch
 against their plain torch versions.
 
 The ``cuda``-marked tests need a card and skip without one. This file
@@ -11,7 +11,9 @@ Tolerances: fp32 kernels sum in another order than torch's matmuls
 (1e-5 attention, 1e-4 for the deeper PointNet / decode-tail chains); bf16
 kernels round where the reference rounds but accumulate in another order
 (2e-2 relative, the bound the JAX package's chip smoke uses for its bf16
-kernels). K1 is exact: indices equal and d^2 bit-equal. The backward
+kernels); K5 as K3. K1 and K8 are exact: indices equal and d^2 bit-equal.
+K10: indices equal, weights within 1e-6 (the same fp32 operations; only
+the division may round differently). The backward
 kernels: K6 1e-5 (fp32) / 2e-2 (bf16) of the largest grad; K7 in fp32 1e-4
 of each grad's largest entry, in bf16 5e-2 in norm (||diff|| / ||plain||):
 a 1-ulp bf16 difference in a recomputed activation (another summation
@@ -27,6 +29,7 @@ import torch
 
 A = importlib.import_module("point_sam_tpu_torch.ops.attention")
 F = importlib.import_module("point_sam_tpu_torch.ops.fps")
+IW = importlib.import_module("point_sam_tpu_torch.ops.interp_pallas")
 PE = importlib.import_module("point_sam_tpu_torch.ops.patch_encoder_pallas")
 UP = importlib.import_module("point_sam_tpu_torch.ops.upscale_pallas")
 _cuda = importlib.import_module("point_sam_tpu_torch.ops._cuda")
@@ -84,7 +87,8 @@ def cuda():
 
 
 WRAPPERS = (F.fps_interp_cuda, A.mha_cuda, PE.patch_encoder_cuda, UP.interp_upscale_cuda,
-            A.mha_packed_bwd_cuda, PE.patch_encoder_bwd_cuda)
+            A.mha_heads_cuda, A.mha_packed_bwd_cuda, PE.patch_encoder_bwd_cuda, F.fps_cuda,
+            IW.interp_weights_cuda)
 
 
 def test_launch_counters_tally_by_shape():
@@ -118,6 +122,12 @@ def test_wrappers_refuse_cpu_tensors():
                               group_size=8, cdt=torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         UP.interp_upscale_cuda(*to(upscale_inputs(rng), "cpu"), cdt=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.mha_heads_cuda(x[None], x[None], x[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        F.fps_cuda(x, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        IW.interp_weights_cuda(x, x[:, :8])
     with pytest.raises(ValueError, match="CUDA"):
         A.mha_packed_bwd_cuda(x, x, x, x, 1)
     with pytest.raises(ValueError, match="CUDA"):
@@ -172,6 +182,52 @@ def test_k3_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh):
     got = A.mha_cuda(q, k, v, H)
     assert got.dtype == dtype
     assert_rel(got, A.mha_plain(q, k, v, H), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,S,dh", [(1, 2, 64, 88), (2, 3, 200, 88), (1, 4, 130, 32),
+                                      (1, 1, 77, 64), (1, 2, 64, 128)])
+def test_k5_kernel_matches_plain(cuda, dtype, tol, B, H, S, dh):
+    rng = np.random.default_rng(5)
+    q, k, v = (to(rng.standard_normal((B, H, S, dh)).astype(np.float32), cuda, dtype)
+               for _ in range(3))
+    got = A.mha_heads_cuda(q, k, v)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_rel(got, A.mha_heads_plain(q, k, v), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,G,with_valid", [(2, 1500, 128, False), (2, 1500, 128, True),
+                                              (1, 5000, 1, True), (1, 40000, 2048, True)])
+def test_k8_kernel_matches_plain(cuda, B, N, G, with_valid):
+    rng = np.random.default_rng(8)
+    pts = to(rng.standard_normal((B, N, 3)).astype(np.float32), cuda)
+    valid = None
+    if with_valid:
+        v = rng.random((B, N)) > 0.1
+        v[0, :3] = False
+        valid = to(v, cuda)
+    got = F.fps_cuda(pts, G, valid=valid)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(n(got), n(F.fps_plain(pts, G, valid=valid)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,G,grid", [(2, 3000, 64, False), (1, 5000, 2048, False),
+                                        (2, 700, 3, False), (1, 4000, 512, True)])
+def test_k10_kernel_matches_plain(cuda, B, N, G, grid):
+    rng = np.random.default_rng(10)
+    q = rng.standard_normal((B, N, 3)).astype(np.float32)
+    k = rng.standard_normal((B, G, 3)).astype(np.float32)
+    if grid:  # coordinates on a 1/8 grid: exact distance ties
+        q, k = np.round(q * 8) / 8, np.round(k * 8) / 8
+    q, k = to(q, cuda), to(k, cuda)
+    gi, gw = IW.interp_weights_cuda(q, k)
+    wi, ww = IW.interp_weights_plain(q, k)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(n(gi), n(wi))
+    np.testing.assert_allclose(n(gw), n(ww), atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -261,14 +317,20 @@ def test_k7_kernel_routes_ties_to_first_row(cuda):
 
 @pytest.mark.cuda
 def test_kernel_outputs_carry_grad_fn(cuda):
-    """Under autograd on the card the outputs of K2, K3 and K4 are
-    differentiable (their backward is K7, K6 and the recompute)."""
+    """Under autograd on the card the outputs of K2, K3, K4 and K5 are
+    differentiable (their backward is K7, K6 and the recomputes)."""
     rng = np.random.default_rng(9)
     q = to(rng.standard_normal((1, 64, 128)).astype(np.float32), cuda).requires_grad_()
     out = A.mha_flat(q, q, q, 2)
     assert out.grad_fn is not None
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
+    q88 = to(rng.standard_normal((1, 64, 176)).astype(np.float32), cuda).requires_grad_()
+    A.mha_heads_cuda.launches = 0
+    out = A.mha_flat(q88, q88, q88, 2)  # dh=88: head-split, K5
+    assert A.mha_heads_cuda.launches == 1 and out.grad_fn is not None
+    out.sum().backward()
+    assert torch.isfinite(q88.grad).all()
     params = tuple(p.requires_grad_() for p in to(pe_params(rng, 6, 128, 512, 64), cuda))
     x = to(rng.standard_normal((1, 4 * 16, 6)).astype(np.float32), cuda)
     out = PE.patch_encoder_fused(x, params, num_groups=4, group_size=16, cdt=torch.float32)
