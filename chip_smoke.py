@@ -9,9 +9,9 @@ last line):
 1. header: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build: compile the kernels from point_sam_tpu_torch/csrc (one nvcc per
    source, all started together);
-3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs):
-   the Predictor on the CPU (plain versions) and on the card (kernels),
-   same weights, cloud and 3 clicks;
+3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
+   so the decoder tail takes K4): the Predictor on the CPU (plain versions)
+   and on the card (kernels), same weights, cloud and 3 clicks;
 4. the serving path: ViT-L (eva02_large) in bf16 with seeded random
    weights, a seeded 100k-point cloud (bucket 131072, G=2048, K=256),
    set_pointcloud and 3 clicks, with every kernel's launches read around
@@ -23,8 +23,9 @@ last line):
    call of the same function as a yardstick where there is one (SDPA for
    K3 and K5; the port never calls it);
 6. end to end, tiny voronoi model in fp32 (a giant-shaped ViT: fused qkv,
-   GELU MLP, D=176, 2 heads of 88, 2 blocks, so K5 runs): as 3, the card
-   with K8, K10, K5 and K4;
+   GELU MLP, D=176, 2 heads of 88, 2 blocks, so K5 runs; G=32, so the
+   decoder tail takes the gather and K11): as 3, the card with K8, K10, K5
+   and K11;
 7. the voronoi EVA-giant serving path: ``build_model`` of
    configs/model/voronoi_giant.yaml (EVA-giant, 40 blocks, D=1408, 16
    heads, MLP 6144; hidden 256, patch channels 512, decoder depth 2) on
@@ -32,20 +33,38 @@ last line):
    same 100k-point cloud (G=2048 by the eval rule), set_pointcloud and 3
    clicks, launches read by shape;
 8. as 5, for every kernel of the voronoi path (K4, K5, K8, K10);
-9. tiny train step in fp32 (the ViT of 3, so K3 and K6 run): the CPU
-   with the plain versions against the card with the kernels, same
-   weights, batch and clicks;
-10. the training path: ViT-L through ``trainer.main`` with the reference
+9. end to end, tiny hier model in fp32 (the ViT of 3; G=(128, 32),
+   K=(16, 8)): as 3, at the default grouping (K8, K10, K2, K3, K4) and at
+   the override group_number=64 (the tail takes the gather and K11);
+10. the hier serving path: ``build_model`` of configs/model/hier.yaml
+   (EVA02-L ViT, G=(2048, 512), K=(32, 32), radii (0.05, 0.1)) in bf16,
+   the Predictor over the same cloud, set_pointcloud and 3 clicks at the
+   model's grouping (K8, K10 twice, K2 at four shapes, K3, K4), then again
+   with the Predictor's level-1 override group_number=4096 (the tail's
+   K4 gate fails: the gather and K11), launches read by shape around each;
+11. as 5, for every kernel of both hier runs, and the decoder tail at the
+   override's shape by both routes on the same inputs (the cloud's level-1
+   geometry, C=3 and C=1): K4 against the gather and K11 the path takes;
+12. the fused-geometry serving path: the ViT-L Predictor of 4 built with
+   ``knn_method="approx"``: K9 once per encode (FPS, 3-NN
+   and the binned kNN in one pass, then a top-k over 4096 bins) and
+   neither K1 nor the exact kNN; then as 5 for its kernels, K9 held to
+   equal outputs and to a recall >= 0.9 against the exact kNN;
+13. tiny train step in fp32 (the ViT of 3, so K3 and K6 run; G=32, so the
+   forward's tail is K11): the CPU with the plain versions against the
+   card with the kernels, same weights, batch and clicks;
+14. the training path: ViT-L through ``trainer.main`` with the reference
    recipe (configs/large.yaml on synthetic data: B=2, N=10,000, M=2,
    G=1024, K=256, 5 click iterations, bf16 compute, fp32 AdamW), 5 steps,
    with the launches read around that run, by shape;
-11. as 5, for every kernel of the training path (K1-K4 forward, K6 and K7
+15. as 5, for every kernel of the training path (K1-K4 forward, K6 and K7
    backward; SDPA's backward is K6's yardstick);
-12. profiles under torch.profiler (device time by stage): one ViT-L train
+16. profiles under torch.profiler (device time by stage): one ViT-L train
    step, timed on one batch before and after that profiler session, then
-   one encode of each serving path on its model built anew. They come
-   last, after every timed phase, because a profiler session slows the
-   host's launches for the rest of the process.
+   one encode of each serving path (ViT-L, voronoi EVA-giant, hier at
+   both groupings, fused-geometry ViT-L) on its model built anew. They come last, after
+   every timed phase, because a profiler session slows the host's
+   launches for the rest of the process.
 
 Every kernel's bound (bound_ms) is computed here from this run's shapes:
 the larger of bytes / 3.35 TB/s and the operations over the card's peak
@@ -179,7 +198,7 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
     its ``count_launch`` recorded): seeded inputs on the card, the kernel
     and plain calls, how to compare them, the work for the bound, and the
     one PyTorch call of the same function where there is one."""
-    F, PE, A, UP, IW = mods
+    F, PE, A, UP, IW, K = mods
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -234,6 +253,32 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
                     plain=lambda: F.fps_interp_plain(pts, G, valid=valid),
                     compare=exact("K1", ("idx", "centers", "interp_idx", "interp_d2")),
                     work=(nbytes, {"fp32": 10.0 * B * n_real * G}))
+
+    if name == "K9":
+        B, N, G, k = key["B"], key["N"], key["G"], key["k"]
+        pts, valid, n_real = cloud(B, N, key["valid"])
+
+        # Equal outputs, and the binned kNN's recall against the exact kNN
+        # of the same centres (the mean share of each centre's k nearest
+        # valid points that K9 returns) at least 0.9.
+        def equal_and_recall(got, want):
+            exact("K9", ("idx", "centers", "interp_idx", "interp_d2", "knn_idx"))(got, want)
+            _, truth = K.knn(got[1], pts, k, key_valid=valid, method="exact")
+            hit = (got[4][..., :, None] == truth[..., None, :]).any(-1).float().mean().item()
+            check(hit >= 0.9, f"K9 kNN recall {hit:.4f} < 0.9")
+            print(f"K9 kNN recall against the exact kNN: {hit:.4f} (B={B}, N={N}, G={G}, "
+                  f"k={k})", flush=True)
+            return 0.0
+
+        # K1's ~10 fp32 operations per real point per step plus the bin
+        # fold's ~3 (mask, compare, select); the cd / ci bins [G, 4096]
+        # written once and the [G, k] ids.
+        nbins = 4096
+        nbytes = B * (N * (3 * 4 + (valid is not None)) + G * 16 + N * 3 * 8 + G * nbins * 8
+                      + G * k * 4)
+        return dict(run=lambda: F.fps_interp_knn_cuda(pts, G, k, valid=valid),
+                    plain=lambda: F.fps_interp_knn_plain(pts, G, k, valid=valid),
+                    compare=equal_and_recall, work=(nbytes, {"fp32": 13.0 * B * n_real * G}))
 
     if name == "K8":
         B, N, G = key["B"], key["N"], key["G"]
@@ -356,6 +401,20 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
             plain=lambda: UP.interp_upscale_plain(h1, idx, w, params, hyper, cdt=cdt),
             compare=within("K4", 2e-2),
             work=(nbytes, {kind: 2.0 * B * M * N * D * D + 2.0 * B * M * C * N * D}))
+
+    if name == "K11":
+        BM, N, D, C = (key[f] for f in ("BM", "N", "D", "C"))
+        cdt, elem, kind = dtype("cdt")
+        x = randn(BM, N, D).to(cdt)
+        params = (1.0 + randn(D, scale=0.1), randn(D, scale=0.1), randn(D, D, scale=D ** -0.5),
+                  randn(D, scale=0.1))
+        hyper = randn(BM, C, D).to(cdt)
+        nbytes = BM * N * D * elem + D * D * elem + BM * C * D * elem + BM * C * N * 4
+        return dict(
+            run=lambda: UP.upscale_hyper_cuda(x, params, hyper, cdt=cdt),
+            plain=lambda: UP.upscale_hyper_reference(x, params, hyper, cdt=cdt),
+            compare=within("K11", 2e-2),
+            work=(nbytes, {kind: 2.0 * BM * N * D * D + 2.0 * BM * C * N * D}))
     raise ValueError(name)
 
 
@@ -405,10 +464,11 @@ def clicks(pred, xyz):
 TINY_VIT = dict(embed_dim=128, depth=2, num_heads=2, mlp_hidden_dim=256)
 
 
-def end_to_end_tiny(torch, np, cpu_model, label, counters, expect, device="cuda"):
-    """Phases 3 and 6: a tiny model in fp32 on the CPU (plain versions) and
-    on the card (kernels), same weights, cloud and 3 clicks; every kernel
-    named in ``expect`` must launch in the card's run."""
+def end_to_end_tiny(torch, np, cpu_model, label, counters, expect, device="cuda", **group):
+    """Phases 3, 6 and 9: a tiny model in fp32 on the CPU (plain versions)
+    and on the card (kernels), same weights, cloud, grouping (``group``:
+    set_pointcloud's override) and 3 clicks; every kernel named in
+    ``expect`` must launch in the card's run."""
     from point_sam_tpu_torch.serving import Predictor
 
     gpu_model = copy.deepcopy(cpu_model).to(device)
@@ -420,7 +480,7 @@ def end_to_end_tiny(torch, np, cpu_model, label, counters, expect, device="cuda"
     for model, dev in ((cpu_model, "cpu"), (gpu_model, device)):
         pred = Predictor(model, device=dev, point_buckets=(2048,))
         reset(counters)
-        pred.set_pointcloud(xyz, rgb)
+        pred.set_pointcloud(xyz, rgb, **group)
         results.append(clicks(pred, xyz))
     torch.cuda.synchronize()
     missing = [name for name in expect if counters[name].launches == 0]
@@ -434,37 +494,38 @@ def end_to_end_tiny(torch, np, cpu_model, label, counters, expect, device="cuda"
         check(float(np.abs(gs - ws).max()) <= 1e-4, f"{label}: scores differ > 1e-4")
         sure = np.abs(wl) >= 1e-3
         check(np.array_equal(gm[sure], wm[sure]), f"{label}: masks differ")
-    print(f"{label} fp32: card kernels {list(expect)} vs CPU plain, 3 clicks, "
-          f"max |dlogit| {worst:.3g}", flush=True)
+    print(f"{label} fp32 (group {pred._state['group']}): card kernels {list(expect)} vs CPU "
+          f"plain, 3 clicks, max |dlogit| {worst:.3g}", flush=True)
 
 
-def serve(torch, np, model, counters, label, minimum):
-    """Phases 4 and 7: a bf16 Predictor over the seeded 100k-point cloud
-    (bucket 131072, G=2048 by the eval rule), set_pointcloud and 3 clicks
-    counted (each kernel of ``minimum`` at least that many launches), then
-    the encode and the two kinds of click timed. Returns each kernel's
-    launches by shape in the counted run."""
-    from point_sam_tpu_torch.serving import Predictor
-
-    pred = Predictor(model)
+def serve(torch, np, pred, counters, label, minimum, *, group=(2048, 256), tokens=2048,
+          absent=(), **override):
+    """Phases 4, 7, 10 and 12: a bf16 Predictor over the seeded 100k-point
+    cloud (bucket 131072; G=2048 by the eval rule, or the hier model's
+    grouping), set_pointcloud (with ``override``) and 3 clicks counted (each
+    kernel of ``minimum`` at least that many launches, each of ``absent``
+    none), then the encode and the two kinds of click timed. Returns each
+    kernel's launches by shape in the counted run. The caller holds the
+    Predictor, so that no model outlives its phase (peak memory counts every
+    live tensor)."""
     xyz, rgb = synthetic_cloud(np.random.default_rng(0), N_FLAGSHIP)
 
-    pred.set_pointcloud(xyz, rgb)  # warm-up: cuBLAS handles, allocator
+    pred.set_pointcloud(xyz, rgb, **override)  # warm-up: cuBLAS handles, allocator
     clicks(pred, xyz)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     reset(counters)
-    pred.set_pointcloud(xyz, rgb)
+    pred.set_pointcloud(xyz, rgb, **override)
     out = clicks(pred, xyz)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     shapes = {name: dict(fn.shapes) for name, fn in counters.items() if fn.shapes}
     peak = torch.cuda.max_memory_allocated()
 
-    check(pred._state["group"][0] == 2048, f"{label}: G rule gave {pred._state['group']}")
+    check(pred._state["group"] == group, f"{label}: grouping {pred._state['group']}")
     check(pred._state["n_pad"] == 131072, f"{label}: bucket is not 131072")
-    check(pred._state["emb"].shape == (1, 2048, 256), f"{label}: {pred._state['emb'].shape}")
+    check(pred._state["emb"].shape == (1, tokens, 256), f"{label}: {pred._state['emb'].shape}")
     check(bool(torch.isfinite(pred._state["emb"]).all()), f"{label}: non-finite encoding")
     for i, (m, s, lg) in enumerate(out):
         c = 3 if i == 0 else 1
@@ -474,8 +535,10 @@ def serve(torch, np, model, counters, label, minimum):
         check(np.isfinite(lg).all(), f"{label} click {i}: non-finite logits")
     for name, lo in minimum.items():
         check(launches[name] >= lo, f"{label}: {name} launched {launches[name]} < {lo} times")
+    for name in absent:
+        check(launches[name] == 0, f"{label}: {name} launched {launches[name]} times")
 
-    enc_ms = time_ms(torch, lambda: pred.set_pointcloud(xyz, rgb))
+    enc_ms = time_ms(torch, lambda: pred.set_pointcloud(xyz, rgb, **override))
     first = lambda: pred.predict_masks(xyz[10:11], [1])  # noqa: E731
     prev = out[0][2][0, 0]
     masked = lambda: pred.predict_masks(xyz[[10, 700]], [1, 0], prev, False)  # noqa: E731
@@ -488,20 +551,61 @@ def serve(torch, np, model, counters, label, minimum):
     return shapes
 
 
-def profile_encode(torch, np, model, label):
-    """Phase 12: one encode of a serving path under torch.profiler, on a
-    model built anew (the timed phases keep none alive)."""
+def tail_routes(torch, UP, pred, counters) -> None:
+    """Phase 11: the decoder tail at the hier override's shape (G1=4096, so
+    JAX's K4 gate fails), by both routes on the same inputs: the cloud's
+    level-1 geometry from ``pred``, seeded tokens [1, 4096, 128] and tail
+    parameters in bf16. K4 on the tokens, against ``decoder_tail`` (the
+    gather, then K11) and the gather alone; CUDA events, median."""
+    from point_sam_tpu_torch.ops.interp import interpolate_features_repeated
+
+    geom = pred._state["geom"]
+    idx, w = geom["interp_index"], geom["interp_weight"]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    D, cdt = 128, torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale
+
+    h1 = randn(1, 4096, D).to(cdt)
+    params = (1.0 + randn(D, scale=0.1), randn(D, scale=0.1), randn(D, D, scale=D ** -0.5),
+              randn(D, scale=0.1))
+    check(not UP.interp_upscale_dispatch_ok(idx.shape[1], 4096, D, 3, cdt),
+          "decoder tail at G1=4096: the K4 gate holds")
+    for C in (3, 1):
+        hyper = randn(1, C, D).to(cdt)
+        k4 = lambda: UP.interp_upscale_cuda(h1, idx, w, params, hyper, cdt=cdt)  # noqa: E731
+        route = lambda: UP.decoder_tail(h1, idx, w, params, hyper, cdt=cdt)  # noqa: E731
+        before = counters["K11"].launches
+        with torch.inference_mode():
+            err = within("decoder tail K4 vs gather + K11", 2e-2)(route(), k4())
+        check(counters["K11"].launches == before + 1, "decoder_tail at G1=4096 took no K11")
+        with torch.inference_mode():
+            k4_ms, route_ms = time_ms(torch, k4), time_ms(torch, route)
+            gather_ms = time_ms(torch, lambda: interpolate_features_repeated(h1, idx, w))
+        print(f"decoder tail hier4096 [BM=1, N={idx.shape[1]}, G1=4096, D={D}], C={C}: "
+              f"K4 {k4_ms:.4f} ms, gather + K11 {route_ms:.4f} ms (gather alone "
+              f"{gather_ms:.4f} ms), max_abs_err {err:.6g}", flush=True)
+
+
+def profile_encode(torch, np, model, label, **override):
+    """Phase 16: one encode of a serving path (with ``override`` of its
+    grouping) under torch.profiler, on a model built anew (the timed phases
+    keep none alive)."""
     from point_sam_tpu_torch.serving import Predictor
 
     pred = Predictor(model)
     xyz, rgb = synthetic_cloud(np.random.default_rng(0), N_FLAGSHIP)
-    pred.set_pointcloud(xyz, rgb)  # warm-up
-    profile(torch, f"{label} encode", lambda: pred.set_pointcloud(xyz, rgb), ENCODE_STAGES)
+    pred.set_pointcloud(xyz, rgb, **override)  # warm-up
+    profile(torch, f"{label} encode", lambda: pred.set_pointcloud(xyz, rgb, **override),
+            ENCODE_STAGES)
+    del pred
+    torch.cuda.empty_cache()
 
 
 def train_step_tiny(torch, np, P, PS, criterion, counters):
-    """Phase 9: one tiny fp32 train step, the CPU's plain versions against
-    the card's kernels (K1-K4, K6 and K7 must each launch), same weights,
+    """Phase 13: one tiny fp32 train step, the CPU's plain versions against
+    the card's kernels (K1-K3, K6, K7 and K11 must each launch), same weights,
     batch and clicks. Tolerances: loss 1e-4 relative; each grad 1e-4 of its
     largest entry + 1e-6, the two PointNets' 5e-3 (the card sums in another
     order, and a max-pool near-tie within that fp32 noise moves a column's
@@ -534,7 +638,7 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
                  if p.grad is not None}
         results.append((outs, float(metrics["loss"]), grads))
     torch.cuda.synchronize()
-    missing = [k for k in ("K1", "K2", "K3", "K4", "K6", "K7") if counters[k].launches == 0]
+    missing = [k for k in ("K1", "K2", "K3", "K6", "K7", "K11") if counters[k].launches == 0]
     check(not missing, f"tiny train step: kernels {missing} did not launch on the card")
     (co, cl, cg), (go, gl, gg) = results
     for c_, g_ in zip(co, go):
@@ -564,12 +668,16 @@ MATMULS = ("matmuls (cuBLAS)", ("gemm", "sm90_", "cutlass", "xmma", "nvjet"))
 # Kernel name fragments -> stage, for the profiles (first match wins).
 TRAIN_STAGES = (("K7 patch encoder bwd", ("patch_encoder_bwd", "reduce_slices")),
                 ("K2 patch encoder", ("patch_encoder",)), ("K6 attention bwd", ("attn_bwd",)),
-                ("K3 attention", ("mha_kernel",)), ("K4 decode tail", ("interp_upscale",)),
+                ("K3 attention", ("mha_kernel",)), ("K4 / K11 decode tail", ("interp_upscale",)),
                 ("K1 FPS + 3-NN", ("fps_interp",)), MATMULS)
-ENCODE_STAGES = (("K1 FPS + 3-NN", ("fps_interp_kernel<true>",)),
-                 ("K8 FPS", ("fps_interp_kernel<false>",)),
+# fps_interp_kernel<0> is K8, <1> K1, <2> K9 (the template mode of
+# csrc/fps_interp.cu).
+ENCODE_STAGES = (("K1 FPS + 3-NN", ("fps_interp_kernel<1>",)),
+                 ("K8 FPS", ("fps_interp_kernel<0>",)),
+                 ("K9 FPS + 3-NN + kNN bins", ("fps_interp_kernel<2>",)),
                  ("K10 3-NN weights", ("interp_kernel",)), ("K2 patch encoder", ("patch_encoder",)),
                  ("K3 / K5 attention", ("mha_kernel",)),
+                 ("torch top-k / sort (exact kNN, K9's bins)", ("topk", "TopK", "sort", "Sort")),
                  ("torch scatter / gather (scatter max, gathers)", ("scatter",)), MATMULS)
 
 
@@ -635,7 +743,7 @@ def profile_step(torch, result, cfg, seed):
 
 
 def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
-    """Phase 10: the training path, the ViT-L recipe through trainer.main on
+    """Phase 14: the training path, the ViT-L recipe through trainer.main on
     synthetic data. Returns each kernel's launches by shape over the run,
     and the step to profile."""
     run_dir = ROOT / "build" / "chip_smoke_train"
@@ -699,6 +807,7 @@ def main() -> int:
     from point_sam_tpu_torch import parallel as PS
     from point_sam_tpu_torch.models.loss import criterion
     from point_sam_tpu_torch.ops import _cuda
+    from point_sam_tpu_torch.serving import Predictor
     from point_sam_tpu_torch.train import trainer
     from point_sam_tpu_torch.utils.config import build_model, load_config
 
@@ -709,42 +818,92 @@ def main() -> int:
 
     mods = [importlib.import_module(f"point_sam_tpu_torch.ops.{m}")
             for m in ("fps", "patch_encoder_pallas", "attention", "upscale_pallas",
-                      "interp_pallas")]
-    F, PE, A, UP, IW = mods
+                      "interp_pallas", "knn")]
+    F, PE, A, UP, IW, K = mods
     counters = {"K1": F.fps_interp_cuda, "K2": PE.patch_encoder_cuda, "K3": A.mha_cuda,
                 "K4": UP.interp_upscale_cuda, "K5": A.mha_heads_cuda,
                 "K6": A.mha_packed_bwd_cuda, "K7": PE.patch_encoder_bwd_cuda,
-                "K8": F.fps_cuda, "K10": IW.interp_weights_cuda}
+                "K8": F.fps_cuda, "K9": F.fps_interp_knn_cuda, "K10": IW.interp_weights_cuda,
+                "K11": UP.upscale_hyper_cuda}
     dev = torch.device("cuda")
 
     tiny = P.PointCloudSAM(P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT),
-                                            tokenizer=P.TokenizerConfig(32, 16)),
+                                            tokenizer=P.TokenizerConfig(128, 16)),
                            generator=torch.Generator().manual_seed(0)).eval()
     end_to_end_tiny(torch, np, tiny, "e2e tiny", counters, ("K1", "K2", "K3", "K4"))
 
-    def vit_l():
-        return P.PointCloudSAM(P.PointSAMConfig(vit="eva02_large"), dtype=torch.bfloat16,
-                               device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    def vit_l(knn_method="auto"):
+        tok = P.TokenizerConfig(knn_method=knn_method)
+        return P.PointCloudSAM(P.PointSAMConfig(vit="eva02_large", tokenizer=tok),
+                               dtype=torch.bfloat16, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
 
     def giant():
         return build_model(load_config("voronoi_giant").model, device="cuda",
                            generator=torch.Generator(device=dev).manual_seed(0))
 
-    rows = check_kernels(torch, np, mods,
-                         serve(torch, np, vit_l(), counters, "flagship ViT-L",
-                               {"K1": 1, "K2": 2, "K3": 24, "K4": 3}), "serve")
+    def hier():
+        return build_model(load_config("model/hier"), device="cuda",
+                           generator=torch.Generator(device=dev).manual_seed(0))
+
+    serve_shapes = serve(torch, np, Predictor(vit_l()), counters, "flagship ViT-L",
+                         {"K1": 1, "K2": 2, "K3": 24, "K4": 3}, absent=("K9",))
+    rows = check_kernels(torch, np, mods, serve_shapes, "serve")
     torch.cuda.empty_cache()
 
     giant_vit = P.ViTConfig(176, 2, 2, 352, swiglu=False, qkv_fused=True)
     tiny_nn = P.PointCloudSAMNN(P.VoronoiConfig(vit=giant_vit, num_patches=32),
                                 generator=torch.Generator().manual_seed(0)).eval()
-    end_to_end_tiny(torch, np, tiny_nn, "e2e tiny voronoi", counters, ("K4", "K5", "K8", "K10"))
-    voronoi = serve(torch, np, giant(), counters, "voronoi EVA-giant",
-                    {"K4": 3, "K5": 40, "K8": 1, "K10": 1})
+    end_to_end_tiny(torch, np, tiny_nn, "e2e tiny voronoi", counters, ("K5", "K8", "K10", "K11"))
+    voronoi = serve(torch, np, Predictor(giant()), counters, "voronoi EVA-giant",
+                    {"K4": 3, "K5": 40, "K8": 1, "K10": 1}, group=(2048, None))
     k5 = sum(voronoi["K5"].values())
     check(k5 == 40, f"voronoi EVA-giant: K5 launched {k5} times, not once per block (40)")
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, voronoi, "voronoi")
+
+    # The hier path: the tiny model at both routes of the tail, then
+    # EVA02-L at the model's grouping (K4) and at the level-1 override
+    # group_number=4096 (the gather and K11).
+    tiny_hier = P.PointCloudSAMHier(
+        P.HierConfig(vit=P.ViTConfig(**TINY_VIT),
+                     tokenizer=P.HierTokenizerConfig((128, 32), (16, 8), (0.05, 0.1))),
+        generator=torch.Generator().manual_seed(0)).eval()
+    end_to_end_tiny(torch, np, tiny_hier, "e2e tiny hier", counters,
+                    ("K2", "K3", "K4", "K8", "K10"))
+    end_to_end_tiny(torch, np, tiny_hier, "e2e tiny hier, group_number=64", counters,
+                    ("K2", "K3", "K8", "K10", "K11"), group_number=64)
+    pred = Predictor(hier())
+    hier_shapes = serve(torch, np, pred, counters, "hier EVA02-L",
+                        {"K2": 2, "K3": 24, "K4": 3, "K8": 1, "K10": 2},
+                        group=((2048, 512), (32, 32)), tokens=512, absent=("K11",))
+    hier_big = serve(torch, np, pred, counters, "hier EVA02-L, group_number=4096",
+                     {"K2": 2, "K3": 24, "K8": 1, "K10": 2, "K11": 3},
+                     group=((4096, 512), (32, 32)), tokens=512, absent=("K4",),
+                     group_number=4096)
+    tail_routes(torch, UP, pred, counters)
+    del pred
+    torch.cuda.empty_cache()
+    rows += check_kernels(torch, np, mods, hier_shapes, "hier")
+    rows += check_kernels(torch, np, mods, hier_big, "hier4096")
+
+    # The fused-geometry path: the ViT-L of phase 4 with knn_method="approx".
+    # The exact kNN is plain torch (no launch counter), so its calls from the
+    # tokenizer are counted here.
+    T = importlib.import_module("point_sam_tpu_torch.models.tokenizer")
+    exact_knn = T.knn
+    knn_calls = []
+    T.knn = lambda *a, **kw: (knn_calls.append(1), exact_knn(*a, **kw))[1]
+    try:
+        fused = serve(torch, np, Predictor(vit_l("approx")), counters, "fused-geometry ViT-L",
+                      {"K2": 2, "K3": 24, "K4": 3, "K9": 1}, absent=("K1",))
+        k9 = sum(fused["K9"].values())
+        check(k9 == 1, f"fused-geometry ViT-L: K9 launched {k9} times in one encode")
+        check(not knn_calls, f"fused-geometry ViT-L: the exact kNN ran {len(knn_calls)} times")
+    finally:
+        T.knn = exact_knn
+    torch.cuda.empty_cache()
+    rows += check_kernels(torch, np, mods, fused, "fusedgeom")
 
     train_step_tiny(torch, np, P, PS, criterion, counters)
     train, train_profile = train_vit_l(torch, trainer, build_model, load_config, counters)
@@ -755,6 +914,9 @@ def main() -> int:
     train_profile()
     profile_encode(torch, np, vit_l(), "flagship ViT-L")
     profile_encode(torch, np, giant(), "voronoi EVA-giant")
+    profile_encode(torch, np, hier(), "hier EVA02-L")
+    profile_encode(torch, np, hier(), "hier EVA02-L, group_number=4096", group_number=4096)
+    profile_encode(torch, np, vit_l("approx"), "fused-geometry ViT-L")
 
     meta = {
         "K1": ("fps_interp", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:138"),
@@ -767,7 +929,9 @@ def main() -> int:
         "K7": ("patch_encoder_bwd", "patch_encoder_bwd.cu",
                "point_sam_tpu/ops/patch_encoder_pallas.py:484"),
         "K8": ("fps", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:65"),
+        "K9": ("fps_interp_knn", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:284"),
         "K10": ("interp_weights", "interp.cu", "point_sam_tpu/ops/interp_pallas.py:33"),
+        "K11": ("upscale_hyper", "upscale.cu", "point_sam_tpu/ops/upscale_pallas.py:54"),
     }
     # One row per kernel, path and launch shape: its launches, error, times
     # and bound all belong to that shape on that path.

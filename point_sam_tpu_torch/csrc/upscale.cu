@@ -1,6 +1,7 @@
-// K4: the mask decoder's per-point tail, fused with the 3-NN interpolation.
+// K4: the mask decoder's per-point tail, fused with the 3-NN interpolation,
+// and K11: the same tail on rows that were interpolated beforehand.
 //
-// Replaces point_sam_tpu/ops/upscale_pallas.py::interp_upscale_hyper_fused
+// K4 replaces point_sam_tpu/ops/upscale_pallas.py::interp_upscale_hyper_fused
 // (_kernel_interp). Per point n of cloud b and mask replica m:
 //   x = sum_k w[n, k] * h1[m][idx[n, k]]          (3-NN interp of G tokens)
 //   h = GELU(Dense(GELU(LN(x))))                   (LN stats fp32, eps 1e-5)
@@ -8,14 +9,20 @@
 // h1 is the Dense_0-projected token table [B*M, G, D] (the projection is
 // hoisted to the G side by the caller). Duplicate neighbour indices add,
 // as in the reference's weighted one-hot / gather-sum.
+// K11 replaces upscale_hyper_fused (_kernel): the decoder takes it where
+// K4's gate fails (G > 2048, G % 128 != 0, or K4's working set too large),
+// after a plain 3-NN gather; x is then the row n of x [B*M, N, D] itself.
+// The Pallas kernel writes [BM, N, C] and transposes; K11 writes [BM, C, N].
 //
 // What bounds it on the H100: the [B*M, N, D] interpolated and hidden
 // tensors (0.13 GB each per replica at N=131072, D=256) would dominate as
 // device-memory traffic; kept on chip, the D x D Dense (17 GFLOP per
-// replica) and the gather of 3 token rows per point bound it.
+// replica) and the gather of 3 token rows per point bound K4. K11 reads the
+// [B*M, N, D] rows once (34 MB at N=131072, D=128 in bf16), which bounds it.
 // Design: one block per (32-point tile, replica) gathers the 3 rows of h1
-// for each point directly by index (no one-hot matmul, no G cap), runs the
-// tail on the tile in shared memory and writes [C, 32] fp32 logits.
+// for each point directly by index (no one-hot matmul, no G cap), or reads
+// the tile's rows of x (K11), runs the tail on the tile in shared memory
+// and writes [C, 32] fp32 logits.
 #include "common.cuh"
 
 namespace {
@@ -23,7 +30,9 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kTile = 32;
 
-template <typename T>
+// kGather: K4 (x gathered from h1 by index / weight); otherwise K11 (h1 is
+// x [B*M, N, D] and index / weight are unused).
+template <typename T, bool kGather>
 __global__ void __launch_bounds__(kThreads)
 interp_upscale_kernel(const T* __restrict__ h1, const int* __restrict__ index,
                       const float* __restrict__ weight, const float* __restrict__ ln_s,
@@ -45,7 +54,9 @@ interp_upscale_kernel(const T* __restrict__ h1, const int* __restrict__ index,
   for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
     const int r = e / D, d = e % D, n = n0 + r;
     float x = 0.0f;
-    if (n < N) {
+    if (n < N && !kGather) {
+      x = to_f32<T>(h1[((size_t)bm * N + n) * D + d]);
+    } else if (n < N) {
       const size_t o = ((size_t)b * N + n) * 3;
       const int i0 = index[o], i1 = index[o + 1], i2 = index[o + 2];
       const float w0 = weight[o], w1 = weight[o + 1], w2 = weight[o + 2];
@@ -83,16 +94,16 @@ interp_upscale_kernel(const T* __restrict__ h1, const int* __restrict__ index,
   }
 }
 
-template <typename T>
+template <typename T, bool kGather>
 int launch(const void* h1, const void* index, const void* weight, const void* ln_s,
            const void* ln_b, const void* w, const void* b, const void* hyper, void* out,
            int B, int M, int G, int N, int D, int C, cudaStream_t stream) {
   const size_t smem = (size_t)(kTile * D + kTile * (D + 1) + C * D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(interp_upscale_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(interp_upscale_kernel<T, kGather>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + kTile - 1) / kTile, B * M);
-  interp_upscale_kernel<T><<<grid, kThreads, smem, stream>>>(
+  interp_upscale_kernel<T, kGather><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h1), static_cast<const int*>(index),
       static_cast<const float*>(weight), static_cast<const float*>(ln_s),
       static_cast<const float*>(ln_b), static_cast<const T*>(w), static_cast<const float*>(b),
@@ -114,7 +125,25 @@ extern "C" int psam_interp_upscale(const void* h1, const void* index, const void
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(h1, index, weight, ln_s, ln_b, w, b, hyper, out, B, M, G, N,
-                                 D, C, st);
-  return launch<float>(h1, index, weight, ln_s, ln_b, w, b, hyper, out, B, M, G, N, D, C, st);
+    return launch<__nv_bfloat16, true>(h1, index, weight, ln_s, ln_b, w, b, hyper, out, B, M,
+                                       G, N, D, C, st);
+  return launch<float, true>(h1, index, weight, ln_s, ln_b, w, b, hyper, out, B, M, G, N, D, C,
+                             st);
+}
+
+// K11: x [BM, N, D], w [D, D] ([in, out]) and hyper [BM, C, D] in the
+// compute dtype (0 = float32, 1 = bfloat16); ln_s, ln_b, b [D] fp32;
+// out [BM, C, N] fp32; D <= 512.
+extern "C" int psam_upscale_hyper(const void* x, const void* ln_s, const void* ln_b,
+                                  const void* w, const void* b, const void* hyper, void* out,
+                                  int BM, int N, int D, int C, int dtype, void* stream) {
+  if (BM <= 0 || N <= 0 || D <= 0 || C <= 0 || D > 32 * psam::kMaxPerLane)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // One cloud per replica (B = BM, M = 1): block (tile, bm) reads rows of x[bm].
+  if (dtype == 1)
+    return launch<__nv_bfloat16, false>(x, nullptr, nullptr, ln_s, ln_b, w, b, hyper, out, BM,
+                                        1, N, N, D, C, st);
+  return launch<float, false>(x, nullptr, nullptr, ln_s, ln_b, w, b, hyper, out, BM, 1, N, N,
+                              D, C, st);
 }

@@ -2,30 +2,45 @@
 
 from .loss import compute_iou, compute_jaccard, compute_mask_loss, criterion
 from .layers import GELU, MLP, CoordMLP, Dense, Embedding, LayerNorm, MLPBlock, PointNetLayer
-from .mask_decoder import MaskDecoder, OutputUpscaling
+from .mask_decoder import MaskDecoder, OutputUpscaling, TwoWayDecoderTrunk
 from .patch_encoder import PatchEncoder
-from .pc_encoder import PatchEmbed, PatchEmbedNN, PointCloudEncoder, PreLNBlock
+from .pc_encoder import PatchEmbed, PatchEmbedHier, PatchEmbedNN, PointCloudEncoder, PreLNBlock
 from .pc_sam import PointCloudSAM, PointSAMConfig, cast_params_for_inference, for_inference
-from .pc_sam_variants import PointCloudSAMNN, VoronoiConfig
+from .pc_sam_variants import (
+    HierConfig,
+    MaskDecoderHier,
+    PointCloudSAMHier,
+    PointCloudSAMNN,
+    VoronoiConfig,
+)
 from .prompt_encoder import (
     MaskEncoder,
+    MaskEncoderHier,
     MaskEncoderNN,
     PointEncoder,
     PositionEmbeddingRandom,
     mask_group_rel_xyz,
     mask_nbr_dist,
 )
-from .tokenizer import TokenizerConfig, compute_geometry, compute_geometry_voronoi
+from .tokenizer import (
+    HierTokenizerConfig,
+    TokenizerConfig,
+    compute_geometry,
+    compute_geometry_hier,
+    compute_geometry_voronoi,
+)
 from .transformer import Attention, TwoWayAttentionBlock, TwoWayTransformer
 from .vit import VIT_PRESETS, EvaBlock, ViT, ViTConfig, get_vit_config
 
 __all__ = [
-    "Attention", "CoordMLP", "Dense", "Embedding", "EvaBlock", "GELU", "LayerNorm", "MLP",
-    "MLPBlock", "MaskDecoder", "MaskEncoder", "MaskEncoderNN", "OutputUpscaling", "PatchEmbed",
-    "PatchEmbedNN", "PatchEncoder", "PointCloudEncoder", "PointCloudSAM", "PointCloudSAMNN",
-    "PointEncoder", "PointNetLayer", "PointSAMConfig", "PositionEmbeddingRandom", "PreLNBlock",
-    "TokenizerConfig", "TwoWayAttentionBlock", "TwoWayTransformer", "VIT_PRESETS", "ViT",
-    "ViTConfig", "VoronoiConfig", "cast_params_for_inference", "compute_geometry",
+    "Attention", "CoordMLP", "Dense", "Embedding", "EvaBlock", "GELU", "HierConfig",
+    "HierTokenizerConfig", "LayerNorm", "MLP", "MLPBlock", "MaskDecoder", "MaskDecoderHier",
+    "MaskEncoder", "MaskEncoderHier", "MaskEncoderNN", "OutputUpscaling", "PatchEmbed",
+    "PatchEmbedHier", "PatchEmbedNN", "PatchEncoder", "PointCloudEncoder", "PointCloudSAM",
+    "PointCloudSAMHier", "PointCloudSAMNN", "PointEncoder", "PointNetLayer", "PointSAMConfig",
+    "PositionEmbeddingRandom", "PreLNBlock", "TokenizerConfig", "TwoWayAttentionBlock",
+    "TwoWayDecoderTrunk", "TwoWayTransformer", "VIT_PRESETS", "ViT", "ViTConfig",
+    "VoronoiConfig", "cast_params_for_inference", "compute_geometry", "compute_geometry_hier",
     "compute_geometry_voronoi", "compute_iou", "compute_jaccard", "compute_mask_loss",
     "criterion", "for_inference", "get_vit_config", "mask_group_rel_xyz", "mask_nbr_dist",
 ]

@@ -11,6 +11,8 @@ keeps it. ``PatchEmbedNN`` is the voronoi variant's: per-point MLP blocks,
 a segment max onto the centres, per-centre MLP blocks. The JAX converter
 has no torch keys for it, so its keys follow the flax module names
 (``in_proj``, ``blocks1_{i}``, ``blocks2_{i}``, ``norm``, ``out_proj``).
+``PatchEmbedHier`` is the hier variant's two PointNets, ``patch_encoder1``
+and ``patch_encoder2`` (the reference's and the flax names).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from torch import nn
 from ..ops import group_points, group_voronoi, scatter_max
 from .layers import GELU, CoordMLP, Dense, LayerNorm
 from .patch_encoder import PatchEncoder
-from .tokenizer import TokenizerConfig
+from .tokenizer import HierTokenizerConfig, TokenizerConfig
 from .vit import ViT, ViTConfig
 
 
@@ -99,6 +101,33 @@ class PatchEmbedNN(nn.Module):
         for i in range(3):
             y = getattr(self, f"blocks2_{i}")(y)
         return self.out_proj(self.norm(y))
+
+
+class PatchEmbedHier(nn.Module):
+    """PointNet++-style two-level patch embed (reference pc_encoder.py:201-239).
+
+    Level 1 groups the cloud into G1 patches and encodes them to 128
+    channels (kernel K2 at C_in = 3 + C, widths (64, 128)); level 2 groups
+    the level-1 centres and their 128-channel embeddings into G2 patches and
+    encodes them to ``out_channels`` (K2 at C_in = 131, widths (128, 256)).
+    Returns (embeddings_l1 [B, G1, 128], embeddings_l2 [B, G2, out])."""
+
+    def __init__(self, cfg: HierTokenizerConfig, in_channels: int = 3, out_channels: int = 512,
+                 *, dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.cfg = cfg
+        self.patch_encoder1 = PatchEncoder(3 + in_channels, 128, (64, 128), **kw)
+        self.patch_encoder2 = PatchEncoder(3 + 128, out_channels, (128, 256), **kw)
+
+    def forward(self, coords, features, geom: dict):
+        r = self.cfg.radius
+        g1 = group_points(coords, features, geom["centers1"], geom["knn_idx1"],
+                          radius=r[0] if r else None)
+        x1 = self.patch_encoder1(g1)
+        g2 = group_points(geom["centers1"], x1, geom["centers2"], geom["knn_idx2"],
+                          radius=r[1] if r else None)
+        return x1, self.patch_encoder2(g2)
 
 
 class PointCloudEncoder(nn.Module):

@@ -13,6 +13,9 @@ point_sam_tpu/models/prompt_encoder.py).
   the centres -> residual MLP stack. The JAX converter has no torch keys
   for it, so its keys follow the flax module names (``first_nn``,
   ``res_in``, ``res_in_norm``, ``res_{i}``, ``res_{i}_norm``, ``res_out``).
+- ``MaskEncoderHier``: the hier variant's mask encoder, the logits grouped
+  onto the level-1 centres and encoded (K2), then those embeddings grouped
+  onto the level-2 centres and encoded again (K2).
 
 Padded click slots are encoded like real ones; the decoder's attention
 masks neutralise them.
@@ -177,3 +180,54 @@ class MaskEncoderNN(nn.Module):
             r = getattr(self, f"res_{i}_norm")(getattr(self, f"res_{i}")(h))
             h = h + self.act(r)
         return self.res_out(h)
+
+
+class MaskEncoderHier(nn.Module):
+    """Two-level mask prompt encoder (reference prompt_encoder.py:136-183):
+    ``patch_encoder1`` (4 -> 128, widths (64, 128)) over the level-1 groups
+    of the mask logits, ``patch_encoder2`` (131 -> embed_dim, widths
+    (128, 256)) over the level-2 groups of those embeddings."""
+
+    def __init__(self, embed_dim: int = 256, radius: tuple[float, float] | None = None, *,
+                 dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.embed_dim = embed_dim
+        self.radius = radius
+        self.dtype = dtype
+        self.patch_encoder1 = PatchEncoder(4, 128, (64, 128), **kw)
+        self.patch_encoder2 = PatchEncoder(3 + 128, embed_dim, (128, 256), **kw)
+        self.no_mask_embed = Embedding(1, embed_dim, device=device, generator=generator)
+
+    def forward(self, masks, coords, centers1, knn_idx1, centers2, knn_idx2, rel_xyz1=None,
+                rel_xyz2=None):
+        """masks [B*M, N] logits (or None); coords [B, N, 3]; centers1 /
+        knn_idx1 and centers2 / knn_idx2 the two levels' geometry ->
+        (x1 [B*M, G1, 128] or None, dense embeddings [B*M or B, G2, D]).
+
+        rel_xyz1 / rel_xyz2: optional cached [B, G_l, K_l, 3] per level from
+        ``mask_group_rel_xyz``; the output is bit-identical with or without
+        them."""
+        if masks is None:
+            B, L = centers2.shape[:2]
+            return None, self.no_mask_embed.weight[0].to(self.dtype).expand(
+                B, L, self.embed_dim)
+        masks = masks.detach()
+        r = self.radius
+        if rel_xyz1 is None:
+            p1 = group_points(coords, masks[..., None], centers1, knn_idx1,
+                              radius=r[0] if r else None)
+        else:
+            logit = group_features(masks[..., None], knn_idx1)
+            nbr = repeat_interleave(rel_xyz1, masks.shape[0] // coords.shape[0], axis=0)
+            p1 = torch.cat([nbr, logit.to(nbr.dtype)], dim=-1)
+        x1 = self.patch_encoder1(p1)  # [B*M, G1, 128]
+        if rel_xyz2 is None:
+            p2 = group_points(centers1, x1, centers2, knn_idx2, radius=r[1] if r else None)
+        else:
+            feats = group_features(x1, knn_idx2)  # [B*M, G2, K2, 128]
+            nbr2 = repeat_interleave(rel_xyz2, x1.shape[0] // centers1.shape[0], axis=0)
+            # The concat promotes to the fp32 of the offsets, as group_points'
+            # does: bit-equal either way.
+            p2 = torch.cat([nbr2, feats.to(nbr2.dtype)], dim=-1)
+        return x1, self.patch_encoder2(p2)

@@ -12,8 +12,11 @@ kernel (autograd Functions):
 - ``mha_flat`` -> K3 (csrc/attention.cu), backward K6 (csrc/attention_bwd.cu),
   for head sizes 64 and 128; ``mha`` (and ``mha_flat`` at other head
   sizes) -> K5 (csrc/attention.cu), backward a plain torch recompute
-- ``interp_upscale_hyper_fused`` -> K4 (csrc/upscale.cu), backward a plain
-  torch recompute
+- ``fps_with_interp_knn`` -> K9 (csrc/fps_interp.cu, FPS + 3-NN + binned
+  kNN), the tokenizer's ``knn_method="approx"``
+- ``decoder_tail`` -> K4 (``interp_upscale_hyper_fused``, interpolation
+  fused in) or a plain 3-NN gather and K11 (``upscale_hyper_fused``), both
+  in csrc/upscale.cu, backward a plain torch recompute
 
 ``sample_prompts`` is the training click simulator and ``scatter_max`` the
 voronoi tokenizer's segment max (plain torch).
@@ -21,7 +24,7 @@ voronoi tokenizer's segment max (plain torch).
 
 from .attention import mha, mha_flat
 from .distance import sq_dist, sq_dist_to_point
-from .fps import fps, fps_with_interp
+from .fps import fps, fps_with_interp, fps_with_interp_knn
 from .group import (
     batch_index_select,
     group_features,
@@ -38,13 +41,15 @@ from .knn import knn, nn1
 from .patch_encoder_pallas import patch_encoder_fused
 from .sampler import sample_prompts, sample_prompts_random
 from .scatter import gather_segments, scatter_max
-from .upscale_pallas import interp_upscale_hyper_fused
+from .upscale_pallas import decoder_tail, interp_upscale_hyper_fused, upscale_hyper_fused
 
 __all__ = [
     "batch_index_select",
     "compute_interp_weights",
+    "decoder_tail",
     "fps",
     "fps_with_interp",
+    "fps_with_interp_knn",
     "gather_segments",
     "group_features",
     "group_points",
@@ -63,4 +68,5 @@ __all__ = [
     "scatter_max",
     "sq_dist",
     "sq_dist_to_point",
+    "upscale_hyper_fused",
 ]

@@ -12,6 +12,13 @@ point, its 3 nearest centres with normalised inverse-square-distance
 weights. On a CUDA tensor it launches kernel K1 (``csrc/fps_interp.cu``,
 replacing ``ops/fps_pallas.py::fps_interp_pallas``); on a CPU tensor it
 runs ``fps_interp_plain``, the same computation step by step in torch.
+
+``fps_with_interp_knn`` adds the tokenizer's k nearest points of every
+centre, from bins that the selection loop fills as it goes: kernel K9
+(``csrc/fps_interp.cu``, replacing ``ops/fps_pallas.py::fps_interp_knn_pallas``)
+on a CUDA tensor, ``fps_interp_knn_plain`` on a CPU tensor. The tokenizer
+takes it for ``knn_method="approx"``, gated on the shapes as the JAX
+function is; it returns None where the gate fails.
 """
 
 from __future__ import annotations
@@ -125,13 +132,15 @@ def fps(points: torch.Tensor, num_samples: int, *,
 
 
 def fps_interp_plain(points: torch.Tensor, num_samples: int, *,
-                     valid: torch.Tensor | None = None):
+                     valid: torch.Tensor | None = None, on_field=None):
     """Plain torch version of kernel K1 (the CPU path and the reference the
     kernel is held against).
 
     Same selection as ``fps_plain``; every step's distance field also updates a
     running best-3 per point (strict <, so ties keep the earlier slot), and
-    one extra pass folds in the last centre's distances.
+    one extra pass folds in the last centre's distances. ``on_field(d)``,
+    when given, receives each centre's distance field [B, N] in turn (K9's
+    bin fold).
 
     Returns:
         (fps_idx [B, G] int32, centers [B, G, 3] f32,
@@ -151,6 +160,8 @@ def fps_interp_plain(points: torch.Tensor, num_samples: int, *,
         c = _center(points, sel)
         ctrs.append(c)
         d = fps_sq_dist(points, c)
+        if on_field is not None:
+            on_field(d)
         min_d = torch.minimum(min_d, d)
         lt0, lt1, lt2 = d < b0, d < b1, d < b2
         gi = torch.full_like(zero, g)
@@ -215,3 +226,140 @@ def fps_with_interp(
     if with_centers:
         return fps_idx, centers, idx, weight
     return fps_idx, idx, weight
+
+
+# ------------------------------------------------------------------ K9
+_SUBLANES, _LANES = 8, 128  # the Pallas kernel's cell layout [8, n_pad / 8]
+
+
+def _knn_cells(points: torch.Tensor, valid: torch.Tensor | None, l_lanes: int):
+    """The cloud padded to n_pad = round_up(N, 8 * max(128, l_lanes)) points
+    at 0, and its validity (padding invalid), as the Pallas wrapper pads."""
+    B, N, _ = points.shape
+    n_pad = -(-N // (_SUBLANES * max(_LANES, l_lanes))) * (_SUBLANES * max(_LANES, l_lanes))
+    pts = torch.zeros((B, n_pad, 3), dtype=torch.float32, device=points.device)
+    pts[:, :N] = points
+    v = torch.zeros((B, n_pad), dtype=torch.bool, device=points.device)
+    v[:, :N] = True if valid is None else valid
+    return pts, v
+
+
+def bins_top_k(cd: torch.Tensor, ci: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """The k nearest of a centre's bins, ascending ([B, G, bins] minima and
+    their point ids -> [B, G, k] int32 ids, clamped to n - 1 as the JAX
+    wrapper clamps empty bins' ids). Equal distances go to the lower bin, as
+    ``lax.top_k`` orders them: the key is (distance bits << 32 | bin), which
+    orders as (distance, bin) since every distance is >= +0."""
+    bin_id = torch.arange(cd.shape[-1], device=cd.device, dtype=torch.int64)
+    key = (cd.float().contiguous().view(torch.int32).long() << 32) | bin_id
+    pos = torch.topk(key, k, dim=-1, largest=False, sorted=True).indices
+    return torch.gather(ci, -1, pos).clamp_max(n - 1).int()
+
+
+def _check_knn_args(num_samples: int, k: int, l_lanes: int) -> None:
+    if num_samples < 3:
+        raise ValueError("the fused geometry needs num_samples >= 3")
+    if k > _SUBLANES * l_lanes:
+        raise ValueError(f"k={k} exceeds the bin count {_SUBLANES * l_lanes}")
+
+
+def fps_interp_knn_plain(points: torch.Tensor, num_samples: int, k: int, *,
+                         valid: torch.Tensor | None = None, l_lanes: int = 512):
+    """Plain torch version of kernel K9 (with the top-k that follows it).
+
+    K1's selection and interp on the padded cloud, and at every step the
+    centre's distance field, +inf at padded and invalid points, folded into
+    8 * l_lanes bins: point n of the padded row lies in bin
+    (n // n8, (n % n8) % l_lanes), n8 = n_pad / 8; per bin the smallest
+    distance wins, ties to the smallest point id. Then the k nearest bins
+    of every centre (``bins_top_k``).
+
+    Returns:
+        (fps_idx [B, G] int32, centers [B, G, 3] f32,
+         interp_idx [B, N, 3] int32, interp_d2 [B, N, 3] f32,
+         knn_idx [B, G, k] int32, ascending by distance).
+    """
+    _check_knn_args(num_samples, k, l_lanes)
+    points = points.float()
+    B, N, _ = points.shape
+    pts, v = _knn_cells(points, valid, l_lanes)
+    n8 = pts.shape[1] // _SUBLANES
+    chunks = n8 // l_lanes
+    row = torch.arange(_SUBLANES, device=pts.device)[:, None]
+    lane = torch.arange(l_lanes, device=pts.device)
+    cds, cis = [], []
+
+    def fold(d):
+        dm = d.masked_fill(~v, float("inf")).view(B, _SUBLANES, chunks, l_lanes)
+        mn = dm.min(dim=2).values  # [B, 8, l_lanes]
+        j = (dm == mn[:, :, None]).to(torch.uint8).argmax(dim=2)  # first: smallest id
+        cds.append(mn.reshape(B, -1))
+        cis.append((row * n8 + j * l_lanes + lane).reshape(B, -1).int())
+
+    idx, ctr, iidx, id2 = fps_interp_plain(pts, num_samples, valid=v, on_field=fold)
+    knn_idx = bins_top_k(torch.stack(cds, 1), torch.stack(cis, 1), k, N)
+    return idx, ctr, iidx[:, :N], id2[:, :N], knn_idx
+
+
+@_cuda.counted
+def fps_interp_knn_cuda(points: torch.Tensor, num_samples: int, k: int, *,
+                        valid: torch.Tensor | None = None, l_lanes: int = 512):
+    """Kernel K9 on the card, then ``bins_top_k`` (torch, outside the
+    kernel, as the JAX wrapper runs ``lax.top_k`` outside its kernel); same
+    outputs as ``fps_interp_knn_plain``."""
+    _check_knn_args(num_samples, k, l_lanes)
+    if l_lanes % 32:
+        raise ValueError(f"K9 takes l_lanes a multiple of 32, got {l_lanes}")
+    points = points.float().contiguous()
+    _cuda.require_cuda(points)
+    B, N, _ = points.shape
+    dev = points.device
+    pts, v = _knn_cells(points, valid, l_lanes)
+    valid_u8, first = _first_valid(pts, v)
+    G, n_pad, nbins = num_samples, pts.shape[1], _SUBLANES * l_lanes
+    idx = torch.empty((B, G), dtype=torch.int32, device=dev)
+    centers = torch.empty((B, G, 3), dtype=torch.float32, device=dev)
+    interp_idx = torch.empty((B, n_pad, 3), dtype=torch.int32, device=dev)
+    interp_d2 = torch.empty((B, n_pad, 3), dtype=torch.float32, device=dev)
+    cd = torch.empty((B, G, nbins), dtype=torch.float32, device=dev)
+    ci = torch.empty((B, G, nbins), dtype=torch.int32, device=dev)
+    cand_v, cand_i = _candidates(B, dev)
+    p = _cuda.ptr
+    code = _cuda.library().psam_fps_interp_knn(
+        p(pts), p(valid_u8), p(first), B, n_pad, G, l_lanes, p(idx), p(centers),
+        p(interp_idx), p(interp_d2), p(cd), p(ci), p(cand_v), p(cand_i), _cuda.stream())
+    _cuda.check("psam_fps_interp_knn", code)
+    _cuda.count_launch(fps_interp_knn_cuda, B=B, N=N, G=G, k=k, valid=valid is not None)
+    knn_idx = bins_top_k(cd, ci, k, N)
+    return idx, centers, interp_idx[:, :N], interp_d2[:, :N], knn_idx
+
+
+def fused_geometry_ok(B: int, N: int, num_samples: int, k: int) -> bool:
+    """The shape gate of JAX's fused geometry (``fps_with_interp_knn``):
+    B == 1, G % 128 == 0 and 3 <= G <= 2048, 16384 <= N <= 400000 and
+    4 < k <= 1024. JAX also asks for its TPU backend, ``PSAM_FUSED_GEOM=1``
+    and a recall target <= 0.93; the port's fused geometry is chosen by
+    ``knn_method="approx"`` alone, at JAX's default target 0.9 (the 4096
+    bins give an expected recall of about 1 - (k - 1) / 8192, 0.97 at
+    k = 256)."""
+    return (B == 1 and num_samples % 128 == 0 and 3 <= num_samples <= 2048
+            and 16_384 <= N <= 400_000 and 4 < k <= 1024)
+
+
+def fps_with_interp_knn(points: torch.Tensor, num_samples: int, k: int, *,
+                        valid: torch.Tensor | None = None, eps: float = 1e-8):
+    """FPS + centres + 3-NN interp + the tokenizer's k-NN from one pass of
+    K9 (``fps_interp_knn_plain`` on a CPU tensor), or None where
+    ``fused_geometry_ok`` fails.
+
+    Returns:
+        (fps_idx [B, G] int32, centers [B, G, 3] f32, interp_idx [B, N, 3]
+         int32, interp_weight [B, N, 3] f32, knn_idx [B, G, k] int32) or None.
+    """
+    B, N, _ = points.shape
+    if not fused_geometry_ok(B, N, num_samples, k):
+        return None
+    run = fps_interp_knn_cuda if points.is_cuda else fps_interp_knn_plain
+    fps_idx, centers, idx, d2, knn_idx = run(points, num_samples, k, valid=valid)
+    inv = 1.0 / torch.clamp_min(d2, eps)
+    return fps_idx, centers, idx, inv / inv.sum(-1, keepdim=True), knn_idx

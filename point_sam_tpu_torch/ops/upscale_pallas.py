@@ -1,15 +1,28 @@
 """Fused mask-decoder tail (counterpart of point_sam_tpu/ops/upscale_pallas.py;
 the file keeps the reference's name so each counterpart is easy to find).
 
-``interp_upscale_hyper_fused``: 3-NN interpolation of the Dense_0-projected
-tokens h1, then LN -> GELU -> Dense -> GELU, then the dot with the
-hypernetwork rows, giving mask logits. It runs the ``InterpUpscale``
-autograd Function (the counterpart of ``interp_upscale_hyper_ad``): the
-forward launches kernel K4 (``csrc/upscale.cu``) on a CUDA tensor and runs
-``interp_upscale_plain`` on a CPU tensor. The reference has no backward
-kernel for it: its backward recomputes the chain in plain arithmetic and
-differentiates that (``_bwd2``), and so does the port's, on both devices.
-``index`` and ``weight`` are stop-gradient geometry and get no gradient.
+The tail: LN -> GELU -> Dense -> GELU on the Dense_0-projected features of
+every point, then the dot with the hypernetwork rows, giving mask logits.
+``decoder_tail`` is the one entry both decoders call; it routes as the JAX
+``MaskDecoder`` does (models/mask_decoder.py:232-251 there), on the shapes
+alone:
+
+- where ``interp_upscale_dispatch_ok`` holds (G <= 2048, G % 128 == 0, the
+  working-set estimate within budget), ``interp_upscale_hyper_fused``: the
+  3-NN interpolation fused with the tail, the ``InterpUpscale`` autograd
+  Function (``interp_upscale_hyper_ad``), kernel K4 (``csrc/upscale.cu``)
+  on a CUDA tensor and ``interp_upscale_plain`` on a CPU tensor;
+- otherwise an explicit 3-NN gather (``interpolate_features_repeated``,
+  plain torch, as JAX gathers in XLA) and ``upscale_hyper_fused``: the
+  ``UpscaleHyper`` Function (``upscale_hyper_ad``), kernel K11
+  (``csrc/upscale.cu``) on a CUDA tensor and ``upscale_hyper_reference`` on
+  a CPU tensor. JAX's third branch, the module path for widths its K11
+  gate refuses, has no counterpart on the card: K11 takes every D <= 512.
+
+The reference has no backward kernel for either: both backwards recompute
+the chain in plain arithmetic and differentiate that (``_bwd``, ``_bwd2``),
+and so do the port's, on both devices. ``index`` and ``weight`` are
+stop-gradient geometry and get no gradient.
 """
 
 from __future__ import annotations
@@ -68,6 +81,35 @@ def interp_upscale_cuda(h1, index, weight, params, hyper, *, cdt):
     return out
 
 
+@_cuda.counted
+def upscale_hyper_cuda(x, params, hyper, *, cdt):
+    """Kernel K11 on the card; same contract as ``upscale_hyper_reference``.
+
+    Args:
+        x: [BM, N, D] interpolated, Dense_0-projected features.
+        params: (ln_scale [D], ln_bias [D], w2 [D, D] as [in, out], b2 [D]).
+        hyper: [BM, C, D].
+
+    Returns:
+        mask logits [BM, C, N] fp32.
+    """
+    s, t, w, b = params
+    BM, N, D = x.shape
+    C = hyper.shape[1]
+    xc = x.to(cdt).contiguous()
+    wc = w.to(cdt).contiguous()
+    hy = hyper.to(cdt).contiguous()
+    vecs = [v.float().contiguous() for v in (s, t, b)]
+    _cuda.require_cuda(xc, wc, hy, *vecs)
+    out = torch.empty((BM, C, N), dtype=torch.float32, device=x.device)
+    p = _cuda.ptr
+    code = _cuda.library().psam_upscale_hyper(
+        p(xc), p(vecs[0]), p(vecs[1]), p(wc), p(vecs[2]), p(hy), p(out), BM, N, D, C,
+        _cuda.dtype_code(cdt), _cuda.stream())
+    _cuda.check("psam_upscale_hyper", code)
+    _cuda.count_launch(upscale_hyper_cuda, BM=BM, N=N, D=D, C=C, cdt=str(cdt))
+    return out
+
 
 def upscale_hyper_reference(x, params, hyper, *, cdt):
     """The module-path tail the reference's backward recomputes
@@ -118,3 +160,75 @@ def interp_upscale_hyper_fused(h1, index, weight, params, hyper, *, cdt):
     """Mask logits [BM, C, N]: K4 on the card, plain on the CPU; the
     backward recomputes in plain torch on both."""
     return InterpUpscale.apply(h1, index, weight.detach(), hyper, cdt, *params)
+
+
+class UpscaleHyper(torch.autograd.Function):
+    """K11 forward, recompute backward (``upscale_hyper_ad``): the forward
+    saves no [BM, N, D] intermediate; grads go to x, the four tail
+    parameters and hyper."""
+
+    @staticmethod
+    def forward(ctx, x, hyper, cdt, *params):
+        ctx.cdt = cdt
+        ctx.save_for_backward(x, hyper, *params)
+        run = upscale_hyper_cuda if x.is_cuda else upscale_hyper_reference
+        return run(x, params, hyper, cdt=cdt)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = upscale_hyper_reference(inputs[0], tuple(inputs[2:]), inputs[1], cdt=ctx.cdt)
+        grads = torch.autograd.grad(out, inputs, dout)
+        return (grads[0], grads[1], None, *grads[2:])
+
+
+def upscale_hyper_fused(x, params, hyper, *, cdt):
+    """Mask logits [BM, C, N] of pre-interpolated x [BM, N, D]: K11 on the
+    card, ``upscale_hyper_reference`` on the CPU; the backward recomputes
+    in plain torch on both."""
+    return UpscaleHyper.apply(x, hyper, cdt, *params)
+
+
+# ------------------------------------------------------------- routing
+_TILE2 = 512  # the Pallas K4's point tile, which sizes its working set
+
+
+def interp_upscale_dispatch_ok(n: int, g: int, d: int, c: int, cdt=torch.bfloat16,
+                               m: int = 1) -> bool:
+    """JAX's gate of K4 (``interp_upscale_dispatch_ok``) as a function of
+    shapes alone: G <= 2048 and G % 128 == 0, D a multiple of 128 up to
+    1024, C <= 8, and the Pallas kernel's whole working-set estimate within
+    72 MB. The port takes K4 exactly where this holds, so both packages
+    compute the same function at every shape."""
+    if g > 2048 or g % 128 or d % 128 or d > 1024 or c > 8:
+        return False
+    ib = torch.empty((), dtype=cdt).element_size()
+    t = _TILE2
+    est = (
+        2 * m * g * d * ib          # h1 block, double-buffered
+        + t * g * (4 + 4 + ib)      # iota + fp32 one-hot accum + cdt W
+        + 2 * m * c * d * 4         # hyper block, double-buffered
+        + 4 * t * d * 4             # x/gl/h + LN temps (fp32)
+        + 2 * m * c * t * 4         # out block, double-buffered
+    )
+    if est > 72 * 2**20:
+        return False
+    return n >= 8
+
+
+def decoder_tail(h1, index, weight, params, hyper, *, cdt):
+    """Mask logits [BM, C, N] of the decoder: K4 where JAX's K4 gate holds,
+    else the explicit 3-NN gather and K11 (plain versions on the CPU).
+
+    Args:
+        h1: [BM, G, D] Dense_0-projected tokens (BM = B*M replicas).
+        index / weight: [B, N, 3] 3-NN geometry shared by the M replicas.
+        params: (ln_scale, ln_bias, w2 [in, out], b2); hyper: [BM, C, D].
+    """
+    BM, G, D = h1.shape
+    B, N = index.shape[:2]
+    if interp_upscale_dispatch_ok(N, G, D, hyper.shape[1], cdt, m=BM // B):
+        return interp_upscale_hyper_fused(h1, index, weight, params, hyper, cdt=cdt)
+    x = interpolate_features_repeated(h1, index, weight.detach())
+    return upscale_hyper_fused(x, params, hyper, cdt=cdt)

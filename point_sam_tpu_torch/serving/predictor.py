@@ -10,7 +10,11 @@ point_sam_tpu/serving/predictor.py).
   every decode.
 - Default grouping follows the reference eval rule: N > 30000 -> G=2048,
   K=256; otherwise the model's own G (capped by the cloud) and K. A
-  voronoi model (``PointCloudSAMNN``) has no K and reads only G.
+  voronoi model (``PointCloudSAMNN``) has no K and reads only G. A hier
+  model (``PointCloudSAMHier``) takes its own two levels at any N; a
+  scalar override sets level 1 and keeps level 2, a 2-tuple sets both.
+- The encode's outputs beyond (embeddings, PE), the hier model's level-1
+  embeddings, ride along to every decode.
 
 Every tensor stays on the predictor's ``device``; results come back as
 numpy arrays, like the JAX predictor's.
@@ -40,9 +44,21 @@ def _next_pow2(n: int, lo: int = 1) -> int:
     return p
 
 
+def _two_level(value, default) -> tuple[int, int]:
+    """A hier override: None -> the model's two levels, a scalar -> level 1
+    (the cloud-facing level), a 2-tuple -> both."""
+    if value is None:
+        return tuple(default)
+    if isinstance(value, (tuple, list)):
+        if len(value) != 2:
+            raise ValueError(f"a two-level override has 2 entries, got {value!r}")
+        return tuple(int(v) for v in value)
+    return int(value), int(default[1])
+
+
 class Predictor:
-    """Interactive single-cloud predictor over a PointCloudSAM or
-    PointCloudSAMNN model."""
+    """Interactive single-cloud predictor over a PointCloudSAM,
+    PointCloudSAMNN or PointCloudSAMHier model."""
 
     def __init__(self, model, *, device=None, point_buckets=DEFAULT_POINT_BUCKETS,
                  max_prompts: int = 64):
@@ -73,7 +89,8 @@ class Predictor:
             xyz: [N, 3] coordinates (unit-sphere normalised unless
                 ``normalize=True``). rgb: [N, 3] colours.
             group_number / group_size: tokenizer override; default is the
-                reference eval rule (N > 30000 -> 2048 / 256).
+                reference eval rule (N > 30000 -> 2048 / 256). For a hier
+                model a scalar sets level 1, a 2-tuple both levels.
         """
         xyz = np.asarray(xyz, np.float32)
         rgb = np.asarray(rgb, np.float32)
@@ -87,14 +104,19 @@ class Predictor:
             xyz = xyz / self._scale
 
         default_g, default_k = self.model.default_grouping
-        if group_number is None:
-            if n > 30000:
-                group_number, group_size = 2048, 256
-            else:
-                group_number = min(default_g, _next_pow2(n, 64))
-        group = dict(group_number=group_number)
-        if default_k is not None:  # a voronoi model has no K
-            group["group_size"] = min(group_size or default_k, n)
+        if isinstance(default_g, tuple):  # hier: two levels, no eval rule
+            group_number = _two_level(group_number, default_g)
+            group = dict(group_number=group_number,
+                         group_size=_two_level(group_size, default_k))
+        else:
+            if group_number is None:
+                if n > 30000:
+                    group_number, group_size = 2048, 256
+                else:
+                    group_number = min(default_g, _next_pow2(n, 64))
+            group = dict(group_number=group_number)
+            if default_k is not None:  # a voronoi model has no K
+                group["group_size"] = min(group_size or default_k, n)
 
         n_pad = _next_bucket(n, self.point_buckets)
         coords = np.zeros((1, n_pad, 3), np.float32)
@@ -108,9 +130,10 @@ class Predictor:
 
         geom = self.model.make_geometry(coords_t, point_valid=valid_t, **group)
         geom.update(self.model.prompt_cache(coords_t, geom))
-        emb, pc_pe = self.model.encode(coords_t, feats_t, geom)
+        emb, pc_pe, *extras = self.model.encode(coords_t, feats_t, geom)
         self._state = dict(n=n, n_pad=n_pad, coords=coords_t, emb=emb, pc_pe=pc_pe,
-                           geom=geom, group=(group_number, group.get("group_size")))
+                           extras=tuple(extras), geom=geom,
+                           group=(group_number, group.get("group_size")))
 
     @torch.inference_mode()
     def predict_masks(self, prompt_points: np.ndarray, prompt_labels: np.ndarray,
@@ -149,7 +172,7 @@ class Predictor:
             pm_np[0, :st["n"]] = np.asarray(prompt_mask, np.float32).reshape(-1)[:st["n"]]
             pm = self._tensor(pm_np)
         masks_logits, iou = self.model.decode(
-            st["emb"], st["pc_pe"], st["coords"], st["geom"], self._tensor(pc),
+            st["emb"], st["pc_pe"], st["coords"], st["geom"], *st["extras"], self._tensor(pc),
             self._tensor(pl), pm, prompt_valid=self._tensor(pv),
             multimask_output=multimask_output)
         logits = masks_logits.float().cpu().numpy()[:, :, :st["n"]]

@@ -73,7 +73,7 @@ def main(argv=None) -> dict:
     if cfg.model.get("variant", "knn") != "knn":
         raise NotImplementedError(
             f"training variant {cfg.model['variant']!r} is not ported yet (ROADMAP.md "
-            "queue 1: voronoi training, then the hier variant)")
+            "queue 1: voronoi training, then hier training)")
 
     model = build_model(cfg.model, device=device,
                         generator=torch.Generator(device).manual_seed(seed))

@@ -151,8 +151,9 @@ def _deep_merge(base: dict, extra: dict) -> dict:
 
 
 def build_model(model_cfg: dict, *, dtype=None, device=None, generator=None):
-    """A PointCloudSAM (``variant: knn``) or PointCloudSAMNN (``variant:
-    voronoi``) from a model config dict; ``variant: hier`` is not ported.
+    """A PointCloudSAM (``variant: knn``), PointCloudSAMNN (``variant:
+    voronoi``) or PointCloudSAMHier (``variant: hier``) from a model config
+    dict.
 
     ``dtype`` is the compute dtype (parameters stay fp32): bf16 on a CUDA
     device and fp32 elsewhere unless given.
@@ -160,7 +161,10 @@ def build_model(model_cfg: dict, *, dtype=None, device=None, generator=None):
     import torch
 
     from ..models import (
+        HierConfig,
+        HierTokenizerConfig,
         PointCloudSAM,
+        PointCloudSAMHier,
         PointCloudSAMNN,
         PointSAMConfig,
         TokenizerConfig,
@@ -169,10 +173,7 @@ def build_model(model_cfg: dict, *, dtype=None, device=None, generator=None):
 
     mc = dict(model_cfg)
     variant = mc.pop("variant", "knn")
-    if variant == "hier":
-        raise NotImplementedError(
-            "model variant 'hier' is not ported yet (ROADMAP.md queue 1, the hier variant)")
-    if variant not in ("knn", "voronoi"):
+    if variant not in ("knn", "voronoi", "hier"):
         raise ValueError(f"unknown model variant {variant!r}")
     if dtype is None:
         dtype = torch.bfloat16 if torch.device(device or "cpu").type == "cuda" else torch.float32
@@ -199,6 +200,18 @@ def build_model(model_cfg: dict, *, dtype=None, device=None, generator=None):
         cfg = VoronoiConfig(num_patches=tok.get("num_patches", 1024),
                             hidden_dim=tok.get("hidden_dim", 256), **common)
         return PointCloudSAMNN(cfg, **kw)
+    if variant == "hier":  # training fields stay out until hier training is ported
+        for f in ("prompt_iters", "enable_mask_refinement_iterations"):
+            common.pop(f)
+        cfg = HierConfig(
+            tokenizer=HierTokenizerConfig(
+                num_patches=tuple(tok.get("num_patches", (2048, 512))),
+                patch_size=tuple(tok.get("patch_size", (32, 32))),
+                radius=tuple(tok["radius"]) if tok.get("radius") else None,
+            ),
+            **common,
+        )
+        return PointCloudSAMHier(cfg, **kw)
     cfg = PointSAMConfig(
         tokenizer=TokenizerConfig(
             num_patches=tok.get("num_patches", 512),

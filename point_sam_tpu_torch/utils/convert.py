@@ -21,7 +21,15 @@ The JAX converter has no rules for the voronoi variant's ``PatchEmbedNN``
 and ``MaskEncoderNN``; their torch keys follow the flax module names under
 the port's module paths (``params/patch_embed/blocks1_0/fc1`` ->
 ``pc_encoder.patch_embed.blocks1_0.fc1``, ``params/mask_encoder/res_in``
--> ``mask_encoder.res_in``).
+-> ``mask_encoder.res_in``). Nor for the hier variant's: its two PointNets
+keep their flax and reference names under the port's module paths
+(``params/patch_embed/patch_encoder1/conv1/Dense_0`` ->
+``pc_encoder.patch_embed.patch_encoder1.conv1.0``, the same under
+``mask_encoder``), its decoder's upscaling stacks are nn.Sequential like
+the flagship's ``output_upscaling`` (``output_upscaling2_fc1`` /
+``_norm`` / ``_fc2`` -> ``mask_decoder.output_upscaling2.0`` / ``.1`` /
+``.3``, likewise ``output_upscaling1``), and ``hyper_mlp_{i}`` maps to
+``output_hypernetworks_mlps.{i}`` as in the flagship.
 """
 
 from __future__ import annotations
@@ -32,15 +40,16 @@ import numpy as np
 import torch
 
 _PN = r"(conv[12])"
+_PE = r"(patch_encoder[12]?)"  # the flagship's PointNet or a hier level's
 # (flax module path, torch module prefix): a module's leaves follow
 # kernel -> weight (transposed), bias -> bias, scale -> weight.
 _MODULE_RULES = [
-    (rf"params/patch_embed/patch_encoder/{_PN}/Dense_0", r"pc_encoder.patch_embed.patch_encoder.\1.0"),
-    (rf"params/patch_embed/patch_encoder/{_PN}/LayerNorm_0/LayerNorm_0", r"pc_encoder.patch_embed.patch_encoder.\1.1"),
-    (rf"params/patch_embed/patch_encoder/{_PN}/Dense_1", r"pc_encoder.patch_embed.patch_encoder.\1.3"),
-    (rf"params/mask_encoder/patch_encoder/{_PN}/Dense_0", r"mask_encoder.patch_encoder.\1.0"),
-    (rf"params/mask_encoder/patch_encoder/{_PN}/LayerNorm_0/LayerNorm_0", r"mask_encoder.patch_encoder.\1.1"),
-    (rf"params/mask_encoder/patch_encoder/{_PN}/Dense_1", r"mask_encoder.patch_encoder.\1.3"),
+    (rf"params/patch_embed/{_PE}/{_PN}/Dense_0", r"pc_encoder.patch_embed.\1.\2.0"),
+    (rf"params/patch_embed/{_PE}/{_PN}/LayerNorm_0/LayerNorm_0", r"pc_encoder.patch_embed.\1.\2.1"),
+    (rf"params/patch_embed/{_PE}/{_PN}/Dense_1", r"pc_encoder.patch_embed.\1.\2.3"),
+    (rf"params/mask_encoder/{_PE}/{_PN}/Dense_0", r"mask_encoder.\1.\2.0"),
+    (rf"params/mask_encoder/{_PE}/{_PN}/LayerNorm_0/LayerNorm_0", r"mask_encoder.\1.\2.1"),
+    (rf"params/mask_encoder/{_PE}/{_PN}/Dense_1", r"mask_encoder.\1.\2.3"),
     (r"params/pc_encoder/patch_proj", "pc_encoder.patch_proj"),
     (r"params/pc_encoder/pos_embed/Dense_0", "pc_encoder.pos_embed.0"),
     (r"params/pc_encoder/pos_embed/Dense_1", "pc_encoder.pos_embed.2"),
@@ -71,6 +80,10 @@ _MODULE_RULES = [
     (r"params/patch_embed/norm/LayerNorm_0", "pc_encoder.patch_embed.norm"),
     (r"params/mask_encoder/(first_nn|res_in|res_\d|res_out)", r"mask_encoder.\1"),
     (r"params/mask_encoder/(res_in_norm|res_\d_norm)/LayerNorm_0", r"mask_encoder.\1"),
+    # Hier variant (no JAX converter rules either).
+    (r"params/mask_decoder/(output_upscaling[12])_fc1", r"mask_decoder.\1.0"),
+    (r"params/mask_decoder/(output_upscaling[12])_norm/LayerNorm_0", r"mask_decoder.\1.1"),
+    (r"params/mask_decoder/(output_upscaling[12])_fc2", r"mask_decoder.\1.3"),
 ]
 _MODULE_RULES = [(re.compile(p + "$"), t) for p, t in _MODULE_RULES]
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}

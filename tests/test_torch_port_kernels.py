@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1-K8 and K10 of point_sam_tpu_torch
-against their plain torch versions.
+"""The hand-written CUDA kernels K1-K11 of point_sam_tpu_torch against
+their plain torch versions.
 
 The ``cuda``-marked tests need a card and skip without one. This file
 imports neither JAX nor the JAX package, so on a machine with a card (and
@@ -13,7 +13,8 @@ kernels round where the reference rounds but accumulate in another order
 (2e-2 relative, the bound the JAX package's chip smoke uses for its bf16
 kernels); K5 as K3. K1 and K8 are exact: indices equal and d^2 bit-equal.
 K10: indices equal, weights within 1e-6 (the same fp32 operations; only
-the division may round differently). The backward
+the division may round differently). K9 is exact (K1's outputs and the
+kNN ids). K11 as K4. The backward
 kernels: K6 1e-5 (fp32) / 2e-2 (bf16) of the largest grad; K7 in fp32 1e-4
 of each grad's largest entry, in bf16 5e-2 in norm (||diff|| / ||plain||):
 a 1-ulp bf16 difference in a recomputed activation (another summation
@@ -88,7 +89,7 @@ def cuda():
 
 WRAPPERS = (F.fps_interp_cuda, A.mha_cuda, PE.patch_encoder_cuda, UP.interp_upscale_cuda,
             A.mha_heads_cuda, A.mha_packed_bwd_cuda, PE.patch_encoder_bwd_cuda, F.fps_cuda,
-            IW.interp_weights_cuda)
+            IW.interp_weights_cuda, F.fps_interp_knn_cuda, UP.upscale_hyper_cuda)
 
 
 def test_launch_counters_tally_by_shape():
@@ -136,6 +137,12 @@ def test_wrappers_refuse_cpu_tensors():
             to(pe_params(rng, 6, 8, 16, 8), "cpu"),
             to(rng.standard_normal((1, 4, 8)).astype(np.float32), "cpu"), num_groups=4,
             group_size=8, cdt=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        F.fps_interp_knn_cuda(to(rng.standard_normal((1, 4096, 3)).astype(np.float32), "cpu"),
+                              8, 8)
+    h1, _, _, params, hyper = to(upscale_inputs(rng), "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        UP.upscale_hyper_cuda(h1, params, hyper, cdt=torch.float32)
     assert [(w.launches, w.shapes) for w in WRAPPERS] == counts
 
 
@@ -344,3 +351,72 @@ def test_kernel_outputs_carry_grad_fn(cuda):
     assert out.grad_fn is not None
     out.sum().backward()
     assert h1.grad is not None and torch.isfinite(h1.grad).all()
+
+
+# ------------------------------------------------------------ K9, K11
+def k9_inputs(case):
+    """(points, valid, l_lanes, k): the inputs the JAX package's K9 tests
+    use (tests/test_ops_geometry.py), and a larger cloud with 32 points per
+    bin."""
+    rng = np.random.default_rng(0)
+    pts = rng.standard_normal((1, 1500, 3)).astype(np.float32)
+    valid, l_lanes, k = None, 512, 16
+    if case == "binned":
+        pts = rng.standard_normal((1, 1800, 3)).astype(np.float32)
+        l_lanes = 128
+    elif case == "valid":
+        valid = np.ones((1, 1500), bool)
+        valid[:, 1100:] = False
+        valid[:, 0] = False
+    elif case == "ties":
+        pts = np.tile(rng.standard_normal((1, 700, 3)).astype(np.float32), (1, 2, 1))
+        k = 8
+    elif case == "large":
+        pts = rng.standard_normal((1, 131_072, 3)).astype(np.float32)
+        valid = np.ones((1, 131_072), bool)
+        valid[:, 100_000:] = False
+        k = 64
+    return pts, valid, l_lanes, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small", "binned", "valid", "ties", "large"])
+def test_k9_kernel_matches_plain(cuda, case):
+    pts, valid, l_lanes, k = k9_inputs(case)
+    pts = to(pts, cuda)
+    valid = None if valid is None else to(valid, cuda)
+    got = F.fps_interp_knn_cuda(pts, 128, k, valid=valid, l_lanes=l_lanes)
+    torch.cuda.synchronize()
+    want = F.fps_interp_knn_plain(pts, 128, k, valid=valid, l_lanes=l_lanes)
+    for name, g, w in zip(("fps_idx", "centers", "interp_idx", "interp_d2", "knn_idx"), got,
+                          want):
+        assert torch.equal(g, w), name
+    ref = F.fps_interp_cuda(pts, 128, valid=valid)  # selection and interp are K1's
+    for g, w in zip(got[:4], ref):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_k11_kernel_matches_plain(cuda, dtype, tol):
+    rng = np.random.default_rng(10)
+    x = to(rng.standard_normal((2, 1000, 128)).astype(np.float32), cuda, dtype)
+    _, _, _, params, hyper = to(upscale_inputs(rng, b=1, m=2, d=128), cuda)
+    got = UP.upscale_hyper_cuda(x, params, hyper, cdt=dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 3, 1000) and got.dtype == torch.float32
+    assert_rel(got, UP.upscale_hyper_reference(x, params, hyper, cdt=dtype), tol)
+
+
+@pytest.mark.cuda
+def test_decoder_tail_launches_k11_where_k4_gate_fails(cuda):
+    """G=64 fails K4's gate: the gather and K11, matching the plain chain."""
+    rng = np.random.default_rng(11)
+    h1, idx, w, params, hyper = to(upscale_inputs(rng, b=1, m=2, g=64, nq=500, d=128), cuda)
+    before = (UP.upscale_hyper_cuda.launches, UP.interp_upscale_cuda.launches)
+    got = UP.decoder_tail(h1, idx, w, params, hyper, cdt=torch.float32)
+    torch.cuda.synchronize()
+    assert (UP.upscale_hyper_cuda.launches, UP.interp_upscale_cuda.launches) == (
+        before[0] + 1, before[1])
+    assert_rel(got, UP.interp_upscale_reference(h1, idx, w, params, hyper, cdt=torch.float32),
+               1e-4)

@@ -197,13 +197,13 @@ def test_load_config_matches_jax():
     assert cfg.train_dataset.transforms[3]["num_samples"] == 10000
     m = build_model(load_config("tiny").model, generator=torch.Generator().manual_seed(0))
     assert m.cfg.prompt_iters == 3 and m.dtype == torch.float32
-    # The voronoi variant builds (here with the tiny ViT); the hier variant
-    # and voronoi training are not ported and say so.
+    # The voronoi and hier variants build (here with the tiny ViT); voronoi
+    # training is not ported and says so.
     voronoi = dict(load_config("voronoi_large").model, vit="tiny")
     m = build_model(voronoi, generator=torch.Generator().manual_seed(0))
     assert type(m).__name__ == "PointCloudSAMNN" and m.cfg.num_patches == 1024
-    with pytest.raises(NotImplementedError, match="hier"):
-        build_model({"variant": "hier"})
+    m = build_model({"variant": "hier", "vit": "tiny"}, generator=torch.Generator().manual_seed(0))
+    assert type(m).__name__ == "PointCloudSAMHier" and m.cfg.tokenizer.num_patches == (2048, 512)
     from point_sam_tpu_torch.train import trainer
 
     with pytest.raises(NotImplementedError, match="voronoi training"):
