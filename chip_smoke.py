@@ -22,6 +22,10 @@ last line):
    timed with CUDA events (median after a warm-up), with the one PyTorch
    call of the same function as a yardstick where there is one (SDPA for
    K3 and K5; the port never calls it);
+5b. K3 and K5 at their edges against their plain versions, fp32 and bf16:
+   ragged S (77, 200, 2049) at every padded head size (dh 32, 64, 88,
+   128), grids wider than one wave, large logits at the serve and voronoi
+   shapes;
 6. end to end, tiny voronoi model in fp32 (a giant-shaped ViT: fused qkv,
    GELU MLP, D=176, 2 heads of 88, 2 blocks, so K5 runs; G=32, so the
    decoder tail takes the gather and K11): as 3, the card with K8, K10, K5
@@ -447,6 +451,46 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
             rows.append(row)
     return rows
 
+
+def attention_edges(torch, A) -> None:
+    """Phase 5b: K3 (``mha_cuda``) and K5 (``mha_heads_cuda``) at their
+    edges against ``mha_plain`` / ``mha_heads_plain`` on seeded inputs, in
+    fp32 (within 1e-5 of the largest plain output) and bf16 (2e-2): ragged
+    S = 77, 200, 2049 at every padded head size (dh = 32, 64, 88, 128);
+    grids wider than one wave of 132 SMs (B * H > 132); and large logits at
+    the serve and voronoi shapes (q * 20, keys growing along S, so that the
+    running max moves in late key tiles and the rescaling by alpha runs)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    # (kernel, B, H, S, dh, q scale)
+    cases = [(name, 1, 2, S, dh, 1.0) for name in ("K3", "K5") for S in (77, 200, 2049)
+             for dh in (32, 64, 88, 128)]
+    cases += [("K3", 3, 48, 200, 32, 1.0), ("K5", 2, 80, 130, 64, 1.0),
+              ("K3", 1, 16, 2048, 64, 20.0), ("K5", 1, 16, 2048, 88, 20.0)]
+    worst = {}
+    for name, B, H, S, dh, qs in cases:
+        ramp = torch.linspace(0.5, 1.5, S, device="cuda")[:, None] if qs != 1.0 else 1.0
+        q, k, v = (torch.randn((B, H, S, dh), device="cuda", generator=g) * f
+                   for f in (qs, ramp, 1.0))
+        for dt, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            x = [t.to(dt) for t in (q, k, v)]
+            label = f"edge {name} [B={B}, H={H}, S={S}, dh={dh}] q*{qs:g} {dt}"
+            if name == "K3":
+                x = [t.transpose(1, 2).reshape(B, S, H * dh) for t in x]
+                got, want = A.mha_cuda(*x, H), A.mha_plain(*x, H)
+            else:
+                got, want = A.mha_heads_cuda(*x), A.mha_heads_plain(*x)
+            check(got.dtype == dt and got.shape == x[0].shape, f"{label}: {got.dtype} {got.shape}")
+            err = within(label, rel)(got, want)
+            scale = want.float().abs().max().item()
+            key = (name, str(dt))
+            worst[key] = max(worst.get(key, 0.0), err / (rel * scale))
+    torch.cuda.synchronize()
+    print(f"attention edges: {len(cases)} shapes x 2 dtypes of K3 / K5 against plain, worst "
+          f"error as a share of its tolerance: "
+          + ", ".join(f"{n} {dt.rsplit('.', 1)[-1]} {w:.3g}" for (n, dt), w in worst.items()),
+          flush=True)
+
+
 def clicks(pred, xyz):
     """3 clicks: one positive point without a mask prompt, then adding a
     negative and a positive point with the previous best logits as mask."""
@@ -850,6 +894,7 @@ def main() -> int:
                          {"K1": 1, "K2": 2, "K3": 24, "K4": 3}, absent=("K9",))
     rows = check_kernels(torch, np, mods, serve_shapes, "serve")
     torch.cuda.empty_cache()
+    attention_edges(torch, A)
 
     giant_vit = P.ViTConfig(176, 2, 2, 352, swiglu=False, qkv_fused=True)
     tiny_nn = P.PointCloudSAMNN(P.VoronoiConfig(vit=giant_vit, num_patches=32),

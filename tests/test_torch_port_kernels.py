@@ -178,14 +178,28 @@ def test_k2_kernel_matches_plain(cuda, dtype, tol, act, G, K, cin, cout):
     assert_rel(got, PE.patch_encoder_plain(x, params, **kw), tol)
 
 
+def qkv_inputs(rng, shape, big):
+    """Seeded q, k, v of ``shape`` [B, H, S, dh]. ``big``: q * 20 and keys
+    growing along S, so that the logits are large, the running max moves in
+    late key tiles and the online softmax rescales its partial sums."""
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    if big:
+        q *= 20
+        k *= np.linspace(0.5, 1.5, shape[2], dtype=np.float32)[:, None]
+    return q, k, v
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,S,H,dh", [(1, 32, 4, 32), (2, 200, 2, 64), (1, 64, 1, 88),
-                                      (1, 130, 1, 128)])
-def test_k3_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh):
-    rng = np.random.default_rng(3)
-    q, k, v = (to(rng.standard_normal((B, S, H * dh)).astype(np.float32), cuda, dtype)
-               for _ in range(3))
+@pytest.mark.parametrize("B,S,H,dh,big", [(1, 32, 4, 32, False), (2, 200, 2, 64, False),
+                                          (1, 64, 1, 88, False), (1, 130, 1, 128, False),
+                                          (1, 2049, 2, 64, False), (1, 2048, 16, 64, False),
+                                          (1, 2048, 16, 64, True)])
+def test_k3_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh, big):
+    """Ragged S, every padded head size, the ViT-L serve shape; ``big``:
+    large logits (see ``qkv_inputs``)."""
+    q, k, v = (to(t.swapaxes(1, 2).reshape(B, S, H * dh), cuda, dtype)
+               for t in qkv_inputs(np.random.default_rng(3), (B, H, S, dh), big))
     got = A.mha_cuda(q, k, v, H)
     assert got.dtype == dtype
     assert_rel(got, A.mha_plain(q, k, v, H), tol)
@@ -193,12 +207,14 @@ def test_k3_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,H,S,dh", [(1, 2, 64, 88), (2, 3, 200, 88), (1, 4, 130, 32),
-                                      (1, 1, 77, 64), (1, 2, 64, 128)])
-def test_k5_kernel_matches_plain(cuda, dtype, tol, B, H, S, dh):
-    rng = np.random.default_rng(5)
-    q, k, v = (to(rng.standard_normal((B, H, S, dh)).astype(np.float32), cuda, dtype)
-               for _ in range(3))
+@pytest.mark.parametrize("B,H,S,dh,big", [(1, 2, 64, 88, False), (2, 3, 200, 88, False),
+                                          (1, 4, 130, 32, False), (1, 1, 77, 64, False),
+                                          (1, 2, 64, 128, False), (1, 2, 2049, 88, False),
+                                          (1, 16, 2048, 88, False), (1, 16, 2048, 88, True)])
+def test_k5_kernel_matches_plain(cuda, dtype, tol, B, H, S, dh, big):
+    """Ragged S, every padded head size, the voronoi EVA-giant shape;
+    ``big``: large logits (see ``qkv_inputs``)."""
+    q, k, v = (to(t, cuda, dtype) for t in qkv_inputs(np.random.default_rng(5), (B, H, S, dh), big))
     got = A.mha_heads_cuda(q, k, v)
     assert got.dtype == dtype and got.shape == q.shape
     assert_rel(got, A.mha_heads_plain(q, k, v), tol)
