@@ -8,7 +8,9 @@ last line):
 
 1. header: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build: compile the kernels from point_sam_tpu_torch/csrc (one nvcc per
-   source, all started together);
+   source, all started together), then print the attention kernels'
+   registers and stack (spill) bytes from ``cuobjdump --dump-resource-usage``
+   of the built library (reported, not gated);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
    so the decoder tail takes K4): the Predictor on the CPU (plain versions)
    and on the card (kernels), same weights, cloud and 3 clicks;
@@ -63,10 +65,17 @@ last line):
    with the launches read around that run, by shape;
 15. as 5, for every kernel of the training path (K1-K4 forward, K6 and K7
    backward; SDPA's backward is K6's yardstick);
+15b. K6 at its edges against its plain version, fp32 and bf16: ragged S
+   (77, 200, 2049) at every padded head size (dh 32, 64, 88, 128), dh = 36
+   (not a multiple of 8: the bf16 kernels' element-wise loads and stores), a
+   grid wider than one wave, large logits at the train shape; two calls at the
+   train shape bit-equal; the kernel's and the plain version's error against
+   an fp32 reference on the same bf16 inputs, printed;
 16. profiles under torch.profiler (device time by stage): one ViT-L train
    step, timed on one batch before and after that profiler session, then
    one encode of each serving path (ViT-L, voronoi EVA-giant, hier at
-   both groupings, fused-geometry ViT-L) on its model built anew. They come last, after
+   both groupings, fused-geometry ViT-L) on its model built anew, then 20
+   calls of K6 and 20 of SDPA's backward at the train shape. They come last, after
    every timed phase, because a profiler session slows the host's
    launches for the rest of the process.
 
@@ -85,6 +94,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -379,12 +389,12 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
         sq, sk, sv = (t.requires_grad_() for t in heads[:3])
         with torch.enable_grad():
             sout = sdpa(sq, sk, sv)
-        # q k^T and do v^T have bf16-exact operands; p^T do, ds k and ds^T q
-        # are fp32 products.
-        ops = {"bf16": 2 * product, "fp32": 3 * product} if kind == "bf16" else {"fp32": 5 * product}
+        # The five products the function needs (q k^T, do v^T, p^T do, ds k,
+        # ds^T q), at the type the kernel runs them in: bf16 on the tensor
+        # cores, or fp32 FMA.
         return dict(run=lambda: A.mha_packed_bwd_cuda(q, k, v, do, H),
                     plain=lambda: A.mha_packed_bwd_plain(q, k, v, do, H), compare=each_grad,
-                    work=(7 * B * S * D * elem, ops),
+                    work=(7 * B * S * D * elem, {kind: 5 * product}),
                     library=lambda: torch.autograd.grad(sout, (sq, sk, sv), heads[3],
                                                         retain_graph=True))
 
@@ -488,6 +498,85 @@ def attention_edges(torch, A) -> None:
     print(f"attention edges: {len(cases)} shapes x 2 dtypes of K3 / K5 against plain, worst "
           f"error as a share of its tolerance: "
           + ", ".join(f"{n} {dt.rsplit('.', 1)[-1]} {w:.3g}" for (n, dt), w in worst.items()),
+          flush=True)
+
+
+def attention_bwd_edges(torch, A) -> None:
+    """Phase 15b: K6 (``mha_packed_bwd_cuda``) at its edges against
+    ``mha_packed_bwd_plain`` on seeded inputs, each grad in fp32 (within 1e-5
+    of its largest plain entry) and bf16 (2e-2): ragged S = 77, 200, 2049 at
+    every padded head size (dh = 32, 64, 88, 128); dh = 36, not a multiple
+    of 8, so the bf16 kernels load and store element by element; a grid wider than one wave (B * H > 132); large logits at the train shape (q * 20, keys growing
+    along S, so that the running max moves in late key tiles). Then, at the
+    train shape, two calls must return the same bits, and the bf16 kernel's
+    and plain version's errors against the fp32 plain version on the same
+    bf16 inputs are printed as shares of the bf16 tolerance (not gated)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(B, H, S, dh, qs):
+        ramp = torch.linspace(0.5, 1.5, S, device="cuda")[:, None] if qs != 1.0 else 1.0
+        return [torch.randn((B, S, H * dh), device="cuda", generator=g) * f
+                for f in (qs, ramp, 1.0, 1.0)]
+
+    # (B, heads, S, dh, q scale)
+    cases = [(1, 2, S, dh, 1.0) for S in (77, 200, 2049) for dh in (32, 64, 88, 128)]
+    cases += [(1, 2, 200, 36, 1.0), (3, 48, 200, 32, 1.0), (2, 16, 1024, 64, 20.0)]
+    worst = {}
+    for B, H, S, dh, qs in cases:
+        x32 = inputs(B, H, S, dh, qs)
+        for dt, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            x = [t.to(dt) for t in x32]
+            label = f"edge K6 [B={B}, H={H}, S={S}, dh={dh}] q*{qs:g} {dt}"
+            got, want = A.mha_packed_bwd_cuda(*x, H), A.mha_packed_bwd_plain(*x, H)
+            for f, a, w in zip("qkv", got, want):
+                check(a.dtype == dt and a.shape == x[0].shape, f"{label} d{f}: {a.dtype} {a.shape}")
+                err = within(f"{label} d{f}", rel)(a, w)
+                key = str(dt).rsplit(".", 1)[-1]
+                worst[key] = max(worst.get(key, 0.0), err / (rel * w.float().abs().max().item()))
+    torch.cuda.synchronize()
+    print(f"K6 edges: {len(cases)} shapes x 2 dtypes against plain, worst error as a share of "
+          f"its tolerance: " + ", ".join(f"{k} {w:.3g}" for k, w in worst.items()), flush=True)
+
+    for qs in (1.0, 20.0):
+        x32 = inputs(2, 16, 1024, 64, qs)
+        for dt in (torch.float32, torch.bfloat16):
+            x = [t.to(dt) for t in x32]
+            first, second = A.mha_packed_bwd_cuda(*x, 16), A.mha_packed_bwd_cuda(*x, 16)
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"K6 [2, 1024, 1024] q*{qs:g} {dt}: two calls differ")
+        # The fp32 reference: the plain arithmetic on the bf16 values, not
+        # rounded at the end.
+        ref = A.mha_packed_bwd_plain(*(t.float() for t in x), 16)
+        shares = {}
+        for name, got in (("kernel", first), ("plain", A.mha_packed_bwd_plain(*x, 16))):
+            shares[name] = [((a.float() - r).abs().max() / (2e-2 * r.abs().max())).item()
+                            for a, r in zip(got, ref)]
+        print(f"K6 [2, 1024, 1024] 16 heads q*{qs:g}: fp32 and bf16 repeats bit-equal; bf16 "
+              f"error against the fp32 reference as a share of the 2e-2 tolerance (dq, dk, dv): "
+              + "; ".join(f"{n} " + ", ".join(f"{v:.4g}" for v in s) for n, s in shares.items()),
+              flush=True)
+
+
+def resource_usage(lib) -> None:
+    """Registers, stack and local bytes (spills) of each attention kernel in
+    the built library, from ``cuobjdump --dump-resource-usage``. Reported
+    only: a missing tool or an unknown format prints a note and gates
+    nothing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "--dump-resource-usage", str(lib)], capture_output=True,
+                             text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        print(f"resources (cuobjdump): not read ({e})", flush=True)
+        return
+    found = re.findall(r"Function (\S+?):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", out)
+    rows = []
+    for mangled, reg, stack, local in found:
+        m = re.search(r"\d+((?:attn_bwd|mha_kernel)\w*?)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+        if m:
+            dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2] or "", "")
+            rows.append(f"{m[1]}<{dtype}{m[3]}> {reg} reg, stack {stack} B, local {local} B")
+    print("resources (cuobjdump): " + ("; ".join(sorted(rows)) or "no attention kernel listed"),
           flush=True)
 
 
@@ -711,7 +800,9 @@ MAY_BE_ZERO = ("mask_decoder.output_hypernetworks_mlps.1.", "mask_decoder.output
 MATMULS = ("matmuls (cuBLAS)", ("gemm", "sm90_", "cutlass", "xmma", "nvjet"))
 # Kernel name fragments -> stage, for the profiles (first match wins).
 TRAIN_STAGES = (("K7 patch encoder bwd", ("patch_encoder_bwd", "reduce_slices")),
-                ("K2 patch encoder", ("patch_encoder",)), ("K6 attention bwd", ("attn_bwd",)),
+                ("K2 patch encoder", ("patch_encoder",)),
+                ("K6 attention bwd, query pass", ("attn_bwd_query",)),
+                ("K6 attention bwd, key pass", ("attn_bwd_key",)),
                 ("K3 attention", ("mha_kernel",)), ("K4 / K11 decode tail", ("interp_upscale",)),
                 ("K1 FPS + 3-NN", ("fps_interp",)), MATMULS)
 # fps_interp_kernel<0> is K8, <1> K1, <2> K9 (the template mode of
@@ -754,6 +845,26 @@ def profile(torch, label, fn, stages):
     print(f"{label} profile (ms of device time): {split}; total {total:.3f} ms over "
           f"{wall:.3f} ms wall under the profiler (device busy {100 * total / wall:.1f}%); "
           f"largest other kernels: {top}", flush=True)
+
+
+def profile_attention_bwd(torch, A, calls=20):
+    """K6 against SDPA's backward (the library's fused kernels) by device
+    time: ``calls`` calls of each at the ViT-L train shape [2, 1024, 1024],
+    16 heads of 64, bf16, each under its own profiler session."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn((2, 1024, 1024), device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    heads = [t.view(2, 1024, 16, 64).transpose(1, 2).contiguous() for t in (q, k, v, do)]
+    sq, sk, sv = (t.requires_grad_() for t in heads[:3])
+    with torch.enable_grad():
+        sout = torch.nn.functional.scaled_dot_product_attention(sq, sk, sv)
+    runs = {"K6": lambda: A.mha_packed_bwd_cuda(q, k, v, do, 16),
+            "SDPA backward": lambda: torch.autograd.grad(sout, (sq, sk, sv), heads[3],
+                                                         retain_graph=True)}
+    for name, fn in runs.items():
+        fn()  # warm
+        profile(torch, f"{name} x{calls} [2, 1024, 1024] 16 heads bf16",
+                lambda f=fn: [f() for _ in range(calls)], TRAIN_STAGES[2:4])
 
 
 def profile_step(torch, result, cfg, seed):
@@ -859,6 +970,7 @@ def main() -> int:
     _cuda.library()
     print(f"build: {time.perf_counter() - t0:.1f} s to a loaded library (nvcc + load)",
           flush=True)
+    resource_usage(_cuda.build())
 
     mods = [importlib.import_module(f"point_sam_tpu_torch.ops.{m}")
             for m in ("fps", "patch_encoder_pallas", "attention", "upscale_pallas",
@@ -955,6 +1067,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, train, "train")
     check({r["kernel"] for r in rows} == set(counters), "a kernel was checked on no path")
+    attention_bwd_edges(torch, A)
 
     train_profile()
     profile_encode(torch, np, vit_l(), "flagship ViT-L")
@@ -962,6 +1075,7 @@ def main() -> int:
     profile_encode(torch, np, hier(), "hier EVA02-L")
     profile_encode(torch, np, hier(), "hier EVA02-L, group_number=4096", group_number=4096)
     profile_encode(torch, np, vit_l("approx"), "fused-geometry ViT-L")
+    profile_attention_bwd(torch, A)
 
     meta = {
         "K1": ("fps_interp", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:138"),

@@ -198,7 +198,9 @@ def mha_packed_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Two launches: K6's query pass (per-row softmax statistics and dq)
     writes an fp32 [B, H, S, 3] workspace that its key pass (dk, dv)
-    reads; no atomics, so the grads are the same from run to run.
+    reads; no atomics, so the grads are the same from run to run. In bf16
+    all five products run on the tensor cores, with p and ds rounded to
+    bf16 as operands (within the bf16 tolerance of this plain version).
     """
     _cuda.require_cuda(q, k, v, do)
     B, S, D = q.shape

@@ -65,14 +65,22 @@ def pe_params(rng, cin, h0, h1, cout):
 
 
 # ------------------------------------------------------------------ K6
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k6_plain_matches_pallas_backward(dtype):
+# (dtype, B, S, heads, dh): two heads of 64 at S=128, a ragged S=200 and a
+# head of 128.
+K6_CASES = [(dt, *shape) for shape in ((2, 128, 2, 64), (1, 200, 2, 64), (1, 128, 2, 128))
+            for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("dtype,B,S,H,dh", K6_CASES,
+                         ids=["float32", "bfloat16", "float32-S200", "bfloat16-S200",
+                              "float32-dh128", "bfloat16-dh128"])
+def test_k6_plain_matches_pallas_backward(dtype, B, S, H, dh):
     tdt, jdt = DTYPES[dtype]
     rng = np.random.default_rng(0)
-    q, k, v, do = (rng.standard_normal((2, 128, 128)).astype(np.float32) for _ in range(4))
-    want = JA.mha_packed_bwd_pallas(*(jnp.asarray(a, jdt) for a in (q, k, v, do)), 2,
+    q, k, v, do = (rng.standard_normal((B, S, H * dh)).astype(np.float32) for _ in range(4))
+    want = JA.mha_packed_bwd_pallas(*(jnp.asarray(a, jdt) for a in (q, k, v, do)), H,
                                     interpret=True)
-    got = A.mha_packed_bwd_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v, do)), 2)
+    got = A.mha_packed_bwd_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v, do)), H)
     for g, w in zip(got, want):
         assert g.dtype == tdt
         assert_rel(g, w, 1e-5 if dtype == "float32" else 2e-2)

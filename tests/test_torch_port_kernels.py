@@ -274,18 +274,42 @@ def assert_norm(got, want, rel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,S,H,dh", [(1, 100, 2, 32), (2, 130, 2, 64), (1, 77, 1, 128),
-                                      (1, 64, 1, 88)])
-def test_k6_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh):
+@pytest.mark.parametrize("B,S,H,dh,big", [(1, 100, 2, 32, False), (2, 130, 2, 64, False),
+                                          (1, 77, 1, 128, False), (1, 64, 1, 88, False),
+                                          (1, 200, 2, 36, False), (1, 2049, 2, 64, False),
+                                          (2, 1024, 16, 64, False),
+                                          (2, 1024, 16, 64, True)])
+def test_k6_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh, big):
+    """Ragged S, every padded head size, dh = 36 (not a multiple of 8, so the
+    bf16 kernels load and store element by element), the ViT-L train shape;
+    ``big``: large logits, as ``qkv_inputs`` makes them."""
     rng = np.random.default_rng(6)
-    q, k, v, do = (to(rng.standard_normal((B, S, H * dh)).astype(np.float32), cuda, dtype)
-                   for _ in range(4))
+    q, k, v, do = (rng.standard_normal((B, S, H * dh)).astype(np.float32) for _ in range(4))
+    if big:
+        q *= 20
+        k *= np.linspace(0.5, 1.5, S, dtype=np.float32)[:, None]
+    q, k, v, do = (to(t, cuda, dtype) for t in (q, k, v, do))
     got = A.mha_packed_bwd_cuda(q, k, v, do, H)
     want = A.mha_packed_bwd_plain(q, k, v, do, H)
     torch.cuda.synchronize()
     for g_, w_ in zip(got, want):
         assert g_.dtype == dtype and g_.shape == q.shape
         assert_rel(g_, w_, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_kernel_repeats_bit_for_bit(cuda, dtype):
+    """Two calls at the ViT-L train shape return the same bits: every grad
+    element is summed by one thread in a fixed order (no atomics)."""
+    rng = np.random.default_rng(66)
+    q, k, v, do = (to(rng.standard_normal((2, 1024, 1024)).astype(np.float32), cuda, dtype)
+                   for _ in range(4))
+    first = A.mha_packed_bwd_cuda(q, k, v, do, 16)
+    second = A.mha_packed_bwd_cuda(q, k, v, do, 16)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def pe_bwd_case(rng, device, dtype, G, K, cin, cout, ties=False):
