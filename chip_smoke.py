@@ -8,7 +8,7 @@ last line):
 
 1. header: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build: compile the kernels from point_sam_tpu_torch/csrc (one nvcc per
-   source, all started together), then print the attention kernels'
+   source, all started together), then print the attention and K2 kernels'
    registers and stack (spill) bytes from ``cuobjdump --dump-resource-usage``
    of the built library (reported, not gated);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
@@ -28,6 +28,11 @@ last line):
    ragged S (77, 200, 2049) at every padded head size (dh 32, 64, 88,
    128), grids wider than one wave, large logits at the serve and voronoi
    shapes;
+5c. K2 at the edges of its bf16 tensor-core kernel against its plain
+   version, fp32 and bf16, both activations: the hier widths at K = 32
+   (C_in = 131 among them), K = 256 at both output widths, K = 77, a grid
+   wider than one wave, duplicated input rows (max-pool ties); two calls at
+   the serve shape bit-equal;
 6. end to end, tiny voronoi model in fp32 (a giant-shaped ViT: fused qkv,
    GELU MLP, D=176, 2 heads of 88, 2 blocks, so K5 runs; G=32, so the
    decoder tail takes the gather and K11): as 3, the card with K8, K10, K5
@@ -207,6 +212,18 @@ def within(label: str, rel: float):
     return compare
 
 
+def pe_params(randn, cin, h0, h1, cout):
+    """The 12 patch-encoder parameters (matrices [in, out]) from ``randn``."""
+    def mat(i, o):
+        return randn(i, o, scale=i ** -0.5)
+
+    def vec(d, mean=0.0):
+        return mean + randn(d, scale=0.1)
+
+    return (mat(cin, h0), vec(h0), vec(h0, 1.0), vec(h0), mat(h0, h0), vec(h0),
+            mat(2 * h0, h1), vec(h1), vec(h1, 1.0), vec(h1), mat(h1, cout), vec(cout))
+
+
 def kernel_case(torch, np, mods, name: str, key: dict, g):
     """Kernel ``name`` at one launch key of its wrapper (the sizes and dtypes
     its ``count_launch`` recorded): seeded inputs on the card, the kernel
@@ -222,16 +239,6 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
     def dtype(field):
         dt = getattr(torch, key[field].rsplit(".", 1)[-1])
         return dt, dt.itemsize, "bf16" if dt == torch.bfloat16 else "fp32"
-
-    def pe_params(cin, h0, h1, cout):
-        def mat(i, o):
-            return randn(i, o, scale=i ** -0.5)
-
-        def vec(d, mean=0.0):
-            return mean + randn(d, scale=0.1)
-
-        return (mat(cin, h0), vec(h0), vec(h0, 1.0), vec(h0), mat(h0, h0), vec(h0),
-                mat(2 * h0, h1), vec(h1), vec(h1, 1.0), vec(h1), mat(h1, cout), vec(cout))
 
     def cloud(B, N, with_valid):
         """B seeded scenes padded to N (100k real points at the serve
@@ -335,7 +342,7 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
     if name in ("K2", "K7"):
         B, G, K, cin, h0, h1, cout = (key[f] for f in ("B", "G", "K", "cin", "h0", "h1", "cout"))
         cdt, elem, kind = dtype("cdt")
-        params = pe_params(cin, h0, h1, cout)
+        params = pe_params(randn, cin, h0, h1, cout)
         x = randn(B, G * K, cin).to(cdt)
         kw = dict(num_groups=G, group_size=K, cdt=cdt, act=key["act"])
         rows = B * G * K
@@ -501,6 +508,57 @@ def attention_edges(torch, A) -> None:
           flush=True)
 
 
+def patch_encoder_edges(torch, PE) -> None:
+    """Phase 5c: K2 (``patch_encoder_cuda``) at the bf16 tensor-core
+    kernel's edges against ``patch_encoder_plain`` on seeded inputs, in fp32
+    (within 1e-4 of the largest plain output) and bf16 (2e-2), both
+    activations: the hier level-1 and level-2 widths at K = 32 (C_in = 131),
+    K = 256 at both output widths, K = 77 (a ragged last row chunk), a grid of
+    320 blocks (above one wave), duplicated input rows (exact ties in both
+    max-pools). Then two calls at the serve shape must return the same bits.
+    The worst error is printed as a share of its tolerance."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale
+
+    # (B, G, K, C_in, h0, h1, C_out, ties)
+    cases = [(2, 16, 32, 6, 64, 128, 128, False), (2, 8, 32, 131, 128, 256, 512, False),
+             (2, 8, 32, 131, 128, 256, 256, False), (2, 4, 256, 6, 128, 512, 512, False),
+             (2, 4, 256, 4, 128, 512, 256, False), (2, 6, 77, 4, 128, 512, 256, False),
+             (2, 160, 32, 4, 64, 128, 128, False), (2, 8, 32, 6, 128, 512, 512, True)]
+    worst = {}
+    for B, G, K, cin, h0, h1, cout, ties in cases:
+        prm = pe_params(randn, cin, h0, h1, cout)
+        x = randn(B, G, K, cin)
+        if ties:
+            x[:, :, 1] = x[:, :, 0]
+            x[:, :, 5] = x[:, :, 3]
+        x = x.reshape(B, G * K, cin)
+        for dt, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            for act in ("erf", "tanh"):
+                kw = dict(num_groups=G, group_size=K, cdt=dt, act=act)
+                label = (f"edge K2 [B={B}, G={G}, K={K}, C_in={cin}] h({h0}, {h1}) -> {cout}"
+                         f"{' ties' if ties else ''} {act} {dt}")
+                got, want = PE.patch_encoder_cuda(x, prm, **kw), PE.patch_encoder_plain(x, prm, **kw)
+                check(got.dtype == dt and got.shape == (B, G, cout), f"{label}: {got.dtype} {got.shape}")
+                err = within(label, rel)(got, want)
+                key = str(dt).rsplit(".", 1)[-1]
+                worst[key] = max(worst.get(key, 0.0), err / (rel * want.float().abs().max().item()))
+    torch.cuda.synchronize()
+    print(f"K2 edges: {len(cases)} shapes x 2 dtypes x 2 activations against plain, worst error "
+          f"as a share of its tolerance: " + ", ".join(f"{k} {w:.3g}" for k, w in worst.items()),
+          flush=True)
+
+    prm = pe_params(randn, 6, 128, 512, 512)
+    x = randn(1, 2048 * 256, 6)
+    for dt in (torch.float32, torch.bfloat16):
+        kw = dict(num_groups=2048, group_size=256, cdt=dt)
+        check(torch.equal(PE.patch_encoder_cuda(x, prm, **kw), PE.patch_encoder_cuda(x, prm, **kw)),
+              f"K2 [1, 2048*256, 6] -> 512 {dt}: two calls differ")
+    print("K2 [1, 2048*256, 6] h(128, 512) -> 512: fp32 and bf16 repeats bit-equal", flush=True)
+
+
 def attention_bwd_edges(torch, A) -> None:
     """Phase 15b: K6 (``mha_packed_bwd_cuda``) at its edges against
     ``mha_packed_bwd_plain`` on seeded inputs, each grad in fp32 (within 1e-5
@@ -558,10 +616,10 @@ def attention_bwd_edges(torch, A) -> None:
 
 
 def resource_usage(lib) -> None:
-    """Registers, stack and local bytes (spills) of each attention kernel in
-    the built library, from ``cuobjdump --dump-resource-usage``. Reported
-    only: a missing tool or an unknown format prints a note and gates
-    nothing."""
+    """Registers, stack and local bytes (spills) of each attention kernel and
+    each K2 kernel in the built library, from ``cuobjdump
+    --dump-resource-usage``. Reported only: a missing tool or an unknown
+    format prints a note and gates nothing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         out = subprocess.run([tool, "--dump-resource-usage", str(lib)], capture_output=True,
@@ -573,11 +631,15 @@ def resource_usage(lib) -> None:
     rows = []
     for mangled, reg, stack, local in found:
         m = re.search(r"\d+((?:attn_bwd|mha_kernel)\w*?)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+        k2 = re.search(r"\d+(patch_encoder(?:_mma)?_kernel)(?:I(f|13__nv_bfloat16)E)?", mangled)
         if m:
             dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2] or "", "")
             rows.append(f"{m[1]}<{dtype}{m[3]}> {reg} reg, stack {stack} B, local {local} B")
-    print("resources (cuobjdump): " + ("; ".join(sorted(rows)) or "no attention kernel listed"),
-          flush=True)
+        elif k2:
+            dtype = {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(k2[2] or "", "")
+            rows.append(f"{k2[1]}{dtype} {reg} reg, stack {stack} B, local {local} B")
+    print("resources (cuobjdump): "
+          + ("; ".join(sorted(rows)) or "no attention or K2 kernel listed"), flush=True)
 
 
 def clicks(pred, xyz):
@@ -1007,6 +1069,7 @@ def main() -> int:
     rows = check_kernels(torch, np, mods, serve_shapes, "serve")
     torch.cuda.empty_cache()
     attention_edges(torch, A)
+    patch_encoder_edges(torch, PE)
 
     giant_vit = P.ViTConfig(176, 2, 2, 352, swiglu=False, qkv_fused=True)
     tiny_nn = P.PointCloudSAMNN(P.VoronoiConfig(vit=giant_vit, num_patches=32),

@@ -1,5 +1,6 @@
 // Inline-PTX building blocks of the bf16 tensor-core kernels (K3 / K5 in
-// attention.cu, K6 in attention_bwd.cu): cp.async copies into shared
+// attention.cu, K6 in attention_bwd.cu, K2 in patch_encoder.cu through
+// mma_tile.cuh): cp.async copies into shared
 // memory, ldmatrix fragment loads and mma.sync.m16n8k16 with fp32
 // accumulation.
 //
@@ -44,6 +45,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {

@@ -164,18 +164,58 @@ def test_k1_kernel_matches_plain(cuda, B, N, G, with_valid):
         np.testing.assert_array_equal(n(g_), n(w_))
 
 
+def k2_case(params):
+    """pytest.param of (G, K, cin, cout, h0, h1, B, ties) named by its sizes;
+    the first cases' names predate the widths, B and ties columns."""
+    G, K, cin, cout, h0, h1, B, ties = params
+    name = f"{G}-{K}-{cin}-{cout}"
+    if (h0, h1, B, ties) != (128, 512, 2, False):
+        name += f"-h{h0}-{h1}-B{B}" + ("-ties" if ties else "")
+    return pytest.param(*params, id=name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("act", ["erf", "tanh"])
-@pytest.mark.parametrize("G,K,cin,cout", [(32, 16, 6, 512), (8, 20, 4, 256), (4, 24, 6, 40)])
-def test_k2_kernel_matches_plain(cuda, dtype, tol, act, G, K, cin, cout):
+@pytest.mark.parametrize("G,K,cin,cout,h0,h1,B,ties", [k2_case(c) for c in [
+    (32, 16, 6, 512, 128, 512, 2, False), (8, 20, 4, 256, 128, 512, 2, False),
+    (4, 24, 6, 40, 128, 512, 2, False),
+    # The bf16 tensor-core kernel's edges: the hier level-1 and level-2
+    # widths at K = 32 (C_in = 131 pads the first Dense to 144), K = 256 at
+    # both output widths (4 row chunks of a2), K = 77 (a ragged last chunk),
+    # a grid of 320 blocks (above one wave on 132 SMs), duplicated input
+    # rows (exact ties in both max-pools).
+    (16, 32, 6, 128, 64, 128, 2, False), (8, 32, 131, 512, 128, 256, 2, False),
+    (8, 32, 131, 256, 128, 256, 2, False), (4, 256, 6, 512, 128, 512, 2, False),
+    (4, 256, 4, 256, 128, 512, 2, False), (6, 77, 4, 256, 128, 512, 2, False),
+    (160, 32, 4, 128, 64, 128, 2, False), (8, 32, 6, 512, 128, 512, 2, True)]])
+def test_k2_kernel_matches_plain(cuda, dtype, tol, act, G, K, cin, cout, h0, h1, B, ties):
     rng = np.random.default_rng(2)
-    params = to(pe_params(rng, cin, 128, 512, cout), cuda)
-    x = to(rng.standard_normal((2, G * K, cin)).astype(np.float32), cuda)
+    params = to(pe_params(rng, cin, h0, h1, cout), cuda)
+    x = rng.standard_normal((B, G, K, cin)).astype(np.float32)
+    if ties:
+        x[:, :, 1] = x[:, :, 0]
+        x[:, :, 5] = x[:, :, 3]
+    x = to(x.reshape(B, G * K, cin), cuda)
     kw = dict(num_groups=G, group_size=K, cdt=dtype, act=act)
     got = PE.patch_encoder_cuda(x, params, **kw)
-    assert got.dtype == dtype and got.shape == (2, G, cout)
+    assert got.dtype == dtype and got.shape == (B, G, cout)
     assert_rel(got, PE.patch_encoder_plain(x, params, **kw), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_kernel_repeats_bit_for_bit(cuda, dtype):
+    """Two calls at the serve shape [1, 2048 * 256, 6] -> 512 return the same
+    bits: every sum runs in a fixed order (no atomics)."""
+    rng = np.random.default_rng(22)
+    params = to(pe_params(rng, 6, 128, 512, 512), cuda)
+    x = to(rng.standard_normal((1, 2048 * 256, 6)).astype(np.float32), cuda)
+    kw = dict(num_groups=2048, group_size=256, cdt=dtype)
+    first = PE.patch_encoder_cuda(x, params, **kw)
+    second = PE.patch_encoder_cuda(x, params, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def qkv_inputs(rng, shape, big):

@@ -177,19 +177,33 @@ def test_interp_matches_jax(rng):
 
 
 # ------------------------------------------------ K2: PointNet encoder
-@pytest.mark.parametrize("act", ["erf", "tanh"])
-def test_patch_encoder_plain_matches_jax(rng, act):
-    """K2's plain version against the Pallas kernel (interpret, fp32) and
-    the XLA reference, within 1e-5."""
-    B, G, K, cin = 2, 8, 16, 6
-    params = pe_params(rng, cin, 32, 64, 48)
+@pytest.mark.parametrize("act,cdt,sizes", [
+    pytest.param("erf", "float32", (2, 8, 16, 6, 32, 64, 48), id="erf"),
+    pytest.param("tanh", "float32", (2, 8, 16, 6, 32, 64, 48), id="tanh"),
+    pytest.param("erf", "bfloat16", (2, 8, 16, 6, 32, 64, 48), id="bf16-erf"),
+    pytest.param("tanh", "bfloat16", (1, 4, 32, 131, 128, 256, 256), id="bf16-hier2-tanh"),
+])
+def test_patch_encoder_plain_matches_jax(rng, act, cdt, sizes):
+    """K2's plain version against the Pallas kernel (interpret) and, in
+    fp32, the XLA reference: fp32 within 1e-5; bf16 within 2e-2 of the
+    largest output (the products sum in another order, so a value may land
+    one bf16 ulp away), at small widths and at the hier level-2 widths
+    (C_in = 131, h0 = 128, h1 = 256, K = 32), where the card's bf16 kernel
+    pads the first Dense's depth."""
+    B, G, K, cin, h0, h1, cout = sizes
+    params = pe_params(rng, cin, h0, h1, cout)
     x = rng.standard_normal((B, G * K, cin)).astype(np.float32)
-    kw = dict(num_groups=G, group_size=K, cdt=jnp.float32, act=act)
+    kw = dict(num_groups=G, group_size=K, cdt=getattr(jnp, cdt), act=act)
     want_kernel = j_patch_encoder_fused(jnp.asarray(x), tuple(map(jnp.asarray, params)),
                                         interpret=True, **kw)
-    want_ref = patch_encoder_reference(jnp.asarray(x), tuple(map(jnp.asarray, params)), **kw)
     got = PE.patch_encoder_plain(t(x), tuple(map(t, params)), num_groups=G, group_size=K,
-                                 cdt=torch.float32, act=act)
+                                 cdt=getattr(torch, cdt), act=act)
+    if cdt == "bfloat16":
+        assert got.dtype == torch.bfloat16 and got.shape == (B, G, cout)
+        got, want = n(got.float()), np.asarray(want_kernel.astype(jnp.float32))
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+        return
+    want_ref = patch_encoder_reference(jnp.asarray(x), tuple(map(jnp.asarray, params)), **kw)
     np.testing.assert_allclose(n(got), np.asarray(want_kernel), atol=1e-5)
     np.testing.assert_allclose(n(got), np.asarray(want_ref), atol=1e-5)
 
