@@ -8,9 +8,9 @@ last line):
 
 1. header: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build: compile the kernels from point_sam_tpu_torch/csrc (one nvcc per
-   source, all started together), then print the attention and K2 kernels'
-   registers and stack (spill) bytes from ``cuobjdump --dump-resource-usage``
-   of the built library (reported, not gated);
+   source, all started together), then print the attention, K2 and K7
+   kernels' registers and stack (spill) bytes from ``cuobjdump
+   --dump-resource-usage`` of the built library (reported, not gated);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
    so the decoder tail takes K4): the Predictor on the CPU (plain versions)
    and on the card (kernels), same weights, cloud and 3 clicks;
@@ -69,7 +69,12 @@ last line):
    G=1024, K=256, 5 click iterations, bf16 compute, fp32 AdamW), 5 steps,
    with the launches read around that run, by shape;
 15. as 5, for every kernel of the training path (K1-K4 forward, K6 and K7
-   backward; SDPA's backward is K6's yardstick);
+   backward; SDPA's backward is K6's yardstick). K2 runs there with its
+   argmax outputs (the max-pools' first rows the backward reads): they are
+   checked against the plain forward's a2 / a4, on inputs with repeated
+   rows (the first copy must win), and timed with and without them; K7 is given K2's saved max-pools from a launch outside its timed
+   calls, and its plain version the same ones. Then K2 -> K7 twice at the
+   train shape must return the same bits;
 15b. K6 at its edges against its plain version, fp32 and bf16: ragged S
    (77, 200, 2049) at every padded head size (dh 32, 64, 88, 128), dh = 36
    (not a multiple of 8: the bf16 kernels' element-wise loads and stores), a
@@ -87,7 +92,10 @@ last line):
 Every kernel's bound (bound_ms) is computed here from this run's shapes:
 the larger of bytes / 3.35 TB/s and the operations over the card's peak
 for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32), H100 SXM data
-sheet figures at 700 W.
+sheet figures at 700 W. K7's counts only the work the function needs
+(``pe_bwd_work``): the forward's last Dense is K2's, which gives K7 its
+argmaxes, and the backward's rows are only those the max-pool grads reach,
+counted from this run's argmaxes.
 
 The kernels' JSON record has one row per kernel, path and launch shape.
 The second-to-last lines are that record and the nvidia-smi
@@ -121,11 +129,44 @@ def bound(nbytes: float, ops: dict) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pe_work(rows, groups, cin, h0, h1, cout, elem):
-    """(bytes, bf16 FLOPs) of one K2 forward over ``rows`` grouped points."""
+def pe_work(rows, groups, cin, h0, h1, cout, elem, argmax=False):
+    """(bytes, FLOPs) of one K2 forward over ``rows`` grouped points; with
+    ``argmax`` it also writes pool, arg2 and arg4."""
     w = cin * h0 + h0 * h0 + 2 * h0 * h1 + h1 * cout
     flops = 2 * rows * (cin * h0 + h0 * h0 + h0 * h1 + h1 * cout) + 2 * groups * h0 * h1
-    return rows * cin * elem + w * elem + groups * cout * elem, flops
+    saved = argmax * groups * (h0 * elem + 4 * (h0 + cout))
+    return rows * cin * elem + w * elem + groups * cout * elem + saved, flops
+
+
+def pe_bwd_work(groups, cin, h0, h1, cout, elem, need_dx, rows, rows4, rows_any):
+    """(bytes, FLOPs) of one K7 launch, counting only what the function
+    needs. The max-pool grads reach ``rows4`` rows (the distinct arg4 rows
+    of each patch, summed) and ``rows_any`` (arg2 and arg4 together); LN
+    and GELU act row by row, so da3 is zero off the first and da2 off the
+    second. At ``rows_any``: stage 1's first Dense, LN and GELU, and da2
+    w1b^T, g1^T da2, x^T da1 (and da1 w1a^T for dx). At ``rows4``: stage
+    1's second Dense, stage 2 up to its GELU, da3 w2x^T and a2^T da3. Per
+    patch: up_pool, and the sparse products at the argmax entries and the
+    pooled branch (dg3, dw2b, d3c w2p^T, pool^T d3c). Bytes: x, dout, the
+    weights, K2's saved pool / arg2 / arg4 read once; the fp32 grads (and dx
+    over all ``rows``) written once."""
+    w = cin * h0 + h0 * h0 + 2 * h0 * h1 + h1 * cout
+    nparam = w + 4 * h0 + 3 * h1 + cout
+    fwd = 2 * rows_any * cin * h0 + 2 * rows4 * (h0 * h0 + h0 * h1) + 2 * groups * h0 * h1
+    bwd = 2 * rows4 * 2 * h0 * h1 + 2 * rows_any * (2 * h0 * h0 + (1 + need_dx) * cin * h0)
+    sparse = 2 * groups * (2 * cout * h1 + 2 * h0 * h1)
+    nbytes = (rows * cin * elem + w * elem + groups * cout * elem
+              + groups * (h0 * elem + 4 * (h0 + cout)) + nparam * 4 + need_dx * rows * cin * elem)
+    return nbytes, fwd + bwd + sparse
+
+
+def pe_distinct_rows(torch, K, *args) -> int:
+    """The distinct rows that the argmax tensors [B, G, C] name in each
+    patch of K rows, summed over the patches."""
+    hit = torch.zeros((*args[0].shape[:2], K), dtype=torch.bool, device=args[0].device)
+    for a in args:
+        hit.scatter_(2, a.long(), True)
+    return int(hit.sum())
 
 
 def fail(msg: str) -> None:
@@ -346,17 +387,26 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
         x = randn(B, G * K, cin).to(cdt)
         kw = dict(num_groups=G, group_size=K, cdt=cdt, act=key["act"])
         rows = B * G * K
-        nbytes, flops = pe_work(rows, B * G, cin, h0, h1, cout, elem)
         if name == "K2":
-            return dict(run=lambda: PE.patch_encoder_cuda(x, params, **kw),
-                        plain=lambda: PE.patch_encoder_plain(x, params, **kw),
+            argmax = key["argmax"]
+            nbytes, flops = pe_work(rows, B * G, cin, h0, h1, cout, elem, argmax)
+            case = dict(run=lambda: PE.patch_encoder_cuda(x, params, return_argmax=argmax, **kw),
+                        plain=lambda: PE.patch_encoder_plain(x, params, return_argmax=argmax, **kw),
                         compare=within("K2", 2e-2), work=(nbytes, {kind: flops}))
+            if argmax:  # the output as without them, and the rows checked
+                case["compare"] = lambda got, want: pe_argmax_check(
+                    torch, PE, x, params, kw, got, want, PE.patch_encoder_cuda(x, params, **kw))
+                case["without"] = lambda: PE.patch_encoder_cuda(x, params, **kw)
+            return case
         need_dx = key["need_dx"]
         dout = randn(B, G, cout).to(cdt)
+        # K2's saved max-pools, made outside the timed calls; the plain
+        # version gets the same ones.
+        _, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
 
-        # In bf16 a 1-ulp difference in a recomputed activation can move a
-        # max-pool's first argmax to another row (and that column's grad
-        # with it), so the grads are held in norm: ||diff|| <= 5e-2 ||plain||.
+        # Both sides route the max-pool grads to K2's rows, but recompute
+        # the activations in another summation order, so the grads are held
+        # in norm: ||diff|| <= 5e-2 ||plain||.
         def in_norm(got, want):
             pairs = list(zip(got[1], want[1])) + ([(got[0], want[0])] if need_dx else [])
             err = 0.0
@@ -367,16 +417,15 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
                 err = max(err, diff.abs().max().item())
             return err
 
-        # The forward recompute plus the backward's products over every row
-        # (da3 w2x^T, a2^T da3, da2 w1b^T, g1^T da2, x^T da1, and da1 w1a^T
-        # for dx); the final Dense's backward touches only the pooled rows.
-        bwd = 2.0 * rows * (2 * h0 * h1 + 2 * h0 * h0 + (1 + need_dx) * cin * h0)
-        nparam = sum(p.numel() for p in params)
-        nbytes += B * G * cout * elem + nparam * 4 + need_dx * rows * cin * elem
+        rows4, rows_any = (pe_distinct_rows(torch, K, *a) for a in (saved[2:], saved[1:]))
+        print(f"K7 [{B}, {G}*{K}, {cin}] -> {cout}: the max-pool grads reach {rows4} rows "
+              f"through arg4 and {rows_any} through arg2 or arg4, of {rows}", flush=True)
+        nbytes, flops = pe_bwd_work(B * G, cin, h0, h1, cout, elem, need_dx, rows, rows4, rows_any)
         return dict(
-            run=lambda: PE.patch_encoder_bwd_cuda(x, params, dout, need_dx=need_dx, **kw),
-            plain=lambda: PE.patch_encoder_bwd_plain(x, params, dout, **kw),
-            compare=in_norm, work=(nbytes, {kind: flops + bwd}))
+            run=lambda: PE.patch_encoder_bwd_cuda(x, params, dout, need_dx=need_dx, saved=saved,
+                                                  **kw),
+            plain=lambda: PE.patch_encoder_bwd_plain(x, params, dout, saved=saved, **kw),
+            compare=in_norm, work=(nbytes, {kind: flops}))
 
     if name in ("K3", "K6"):
         B, S, D, H = key["B"], key["S"], key["D"], key["heads"]
@@ -439,11 +488,110 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
     raise ValueError(name)
 
 
+def pe_stages(torch, PE, x, params, G, K, cdt, act):
+    """The plain K2 forward's a2 [B, G, K, h0] and a4 [B, G, K, C_out], each
+    with its product rounded to cdt before the bias is added (p2, p4)."""
+    w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b = params
+    x = x.reshape(x.shape[0], G, K, -1)
+    p2 = PE._mm(PE.ln_gelu(PE._dense(x, w1a, b1a, cdt), s1, t1, cdt, act), w1b, cdt).to(cdt)
+    a2 = p2 + b1b.to(cdt)
+    h0 = a2.shape[-1]
+    up = (torch.matmul(a2.float(), w2a[h0:].to(cdt).float())
+          + torch.matmul(PE.first_max(a2, 2).float(), w2a[:h0].to(cdt).float())[:, :, None])
+    a3 = up.to(cdt) + b2a.to(cdt)
+    p4 = PE._mm(PE.ln_gelu(a3, s2, t2, cdt, act), w2b, cdt).to(cdt)
+    return a2, p2, p4 + b2b.to(cdt), p4
+
+
+def pe_ties(x):
+    """Duplicate rows of x [B, G, K, C_in] in place, across each level of
+    K2's reduction: 1 = 0 (one fragment), 40 = 3 (another row group), 70 =
+    10 (another 64-row chunk), 200 = 130 (another chunk and m-tile). The
+    copies 1, 40, 70, 200 are never a first maximum; the sources are
+    returned for the count of columns whose maximum is a duplicated row."""
+    pairs = ((0, 1), (3, 40), (10, 70), (130, 200))
+    for src, dst in pairs:
+        x[:, :, dst] = x[:, :, src]
+    return [src for src, _ in pairs], [dst for _, dst in pairs]
+
+
+def pe_argmax_check(torch, PE, x, params, kw, got, want, without):
+    """K2 with its argmax outputs: the output bit-equal to the call without
+    them and within 2e-2 of plain (the K2 tolerance). K2 and plain may round
+    each row's product and its sum with the bias one ulp apart, so at most
+    2 ulps of the column's scale (its largest product or output magnitude
+    over K) per row: at each column's arg2 / arg4 row the plain a2 / a4
+    lies at most 4 such ulps below that column's plain max, and pool within
+    2 of it (worst of each printed). Then, on inputs whose rows repeat at
+    each level of the reduction (``pe_ties``), no copy is ever the row
+    chosen: a kernel that kept the last of tied maxima fails here."""
+    out, (pool, arg2, arg4) = got
+    check(torch.equal(out, without), "K2: the output differs with the argmax outputs")
+    err = within("K2", 2e-2)(out, want[0])
+    G, K = kw["num_groups"], kw["group_size"]
+    a2, p2, a4, p4 = (a.float() for a in pe_stages(torch, PE, x, params, G, K, kw["cdt"],
+                                                   kw["act"]))
+    bits = 7 if kw["cdt"] == torch.bfloat16 else 23
+    worst = []
+    for label, a, p, arg, limit in (("arg2", a2, p2, arg2, 4), ("arg4", a4, p4, arg4, 4),
+                                    ("pool", a2, p2, None, 2)):
+        top = a.amax(2)
+        scale = torch.maximum(a.abs(), p.abs()).amax(2)
+        ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(1e-30))) - bits)
+        if arg is None:
+            off = (pool.float() - top).abs()
+        else:
+            off = top - torch.take_along_dim(a, arg.long()[:, :, None], 2).squeeze(2)
+        ulps = (off / ulp).max().item()
+        check(ulps <= limit, f"K2 {label}: {ulps:.3g} ulps of its column's scale off its "
+              f"column's max (limit {limit})")
+        worst.append(f"{label} {ulps:.3g} ulp ({int((off > ulp).sum())} columns above 1)")
+    x4 = x.clone().reshape(x.shape[0], G, K, -1)
+    sources, copies = pe_ties(x4)
+    _, (_, targ2, targ4) = PE.patch_encoder_cuda(x4.reshape(x.shape), params,
+                                                 return_argmax=True, **kw)
+    for label, arg in (("arg2", targ2), ("arg4", targ4)):
+        check(not any(bool((arg == r).any()) for r in copies),
+              f"K2 {label}: a later copy of a tied row chosen over the first")
+    tied = sum(int((t == r).sum()) for t in (targ2, targ4) for r in sources)
+    print(f"K2 argmax outputs [{x.shape[0]}, {x.shape[1]}, {x.shape[2]}] -> {out.shape[-1]}: "
+          f"worst distance from the plain column max, in ulps of the column's scale: "
+          + "; ".join(worst) + f"; with rows {copies} copying {sources}, {tied} columns' "
+          f"maxima at a duplicated row, no copy chosen", flush=True)
+    return err
+
+
+def pe_train_repeats(torch, PE) -> None:
+    """K2 with its argmax outputs, then K7 on them, twice at the train
+    shape [4, 1024 * 256, 4] h(128, 512) -> 256, bf16: every output and
+    grad bit-equal."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale
+
+    params = pe_params(randn, 4, 128, 512, 256)
+    x = randn(4, 1024 * 256, 4).to(torch.bfloat16)
+    dout = randn(4, 1024, 256).to(torch.bfloat16)
+    kw = dict(num_groups=1024, group_size=256, cdt=torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+        _, grads = PE.patch_encoder_bwd_cuda(x, params, dout, need_dx=False, saved=saved, **kw)
+        runs.append((out, *saved, *grads))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), "K2 -> K7 at the train shape: two runs "
+          "differ")
+    print("K2 -> K7 [4, 1024*256, 4] h(128, 512) -> 256 bf16: output, pool, arg2, arg4 and the "
+          "12 grads bit-equal over two runs", flush=True)
+
+
 def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
     """Each kernel a path launched, against its plain version at every
     shape and dtype the path gave it: one row per launch key, with the
     path's launches at that key, the error, the kernel's, plain and library
-    times (CUDA events, median) and the bound."""
+    times (CUDA events, median) and the bound. K2 with its argmax outputs
+    is also timed without them (``ms_without_argmax``)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for name, shapes in shapes_by_kernel.items():
@@ -458,10 +606,14 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
                        ms=time_ms(torch, case["run"]),
                        plain_ms=time_ms(torch, case["plain"], reps=3),
                        library_ms=time_ms(torch, case["library"]) if "library" in case else None)
+            if "without" in case:
+                row["ms_without_argmax"] = time_ms(torch, case["without"])
             row["bound_ms"], row["bound_by"] = bound(*case["work"])
             del case
             torch.cuda.empty_cache()
             lib = "" if row["library_ms"] is None else f"  library {row['library_ms']:.4f} ms"
+            if "ms_without_argmax" in row:
+                lib += f"  without the argmax outputs {row['ms_without_argmax']:.4f} ms"
             print(f"kernel {name} {path} {key}: {row['launches']} launches, max_abs_err "
                   f"{err:.6g}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms{lib}  "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
@@ -617,7 +769,7 @@ def attention_bwd_edges(torch, A) -> None:
 
 def resource_usage(lib) -> None:
     """Registers, stack and local bytes (spills) of each attention kernel and
-    each K2 kernel in the built library, from ``cuobjdump
+    each K2 and K7 kernel in the built library, from ``cuobjdump
     --dump-resource-usage``. Reported only: a missing tool or an unknown
     format prints a note and gates nothing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -631,7 +783,8 @@ def resource_usage(lib) -> None:
     rows = []
     for mangled, reg, stack, local in found:
         m = re.search(r"\d+((?:attn_bwd|mha_kernel)\w*?)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
-        k2 = re.search(r"\d+(patch_encoder(?:_mma)?_kernel)(?:I(f|13__nv_bfloat16)E)?", mangled)
+        k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd)?_kernel)(?:I(f|13__nv_bfloat16)E)?",
+                       mangled)
         if m:
             dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2] or "", "")
             rows.append(f"{m[1]}<{dtype}{m[3]}> {reg} reg, stack {stack} B, local {local} B")
@@ -639,7 +792,7 @@ def resource_usage(lib) -> None:
             dtype = {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(k2[2] or "", "")
             rows.append(f"{k2[1]}{dtype} {reg} reg, stack {stack} B, local {local} B")
     print("resources (cuobjdump): "
-          + ("; ".join(sorted(rows)) or "no attention or K2 kernel listed"), flush=True)
+          + ("; ".join(sorted(rows)) or "no attention, K2 or K7 kernel listed"), flush=True)
 
 
 def clicks(pred, xyz):
@@ -1130,6 +1283,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, train, "train")
     check({r["kernel"] for r in rows} == set(counters), "a kernel was checked on no path")
+    pe_train_repeats(torch, PE)
     attention_bwd_edges(torch, A)
 
     train_profile()
@@ -1166,6 +1320,8 @@ def main() -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=r["path"], shape=r["shape"]))
+        if "ms_without_argmax" in r:
+            kernels[-1]["ms_without_argmax"] = r["ms_without_argmax"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

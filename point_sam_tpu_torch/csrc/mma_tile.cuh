@@ -134,4 +134,11 @@ __device__ __forceinline__ float rows_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
 }
 
+// Min over the 8 row groups g of a fragment column, of row indices.
+__device__ __forceinline__ int rows_min(int v) {
+  v = min(v, __shfl_xor_sync(0xffffffffu, v, 4));
+  v = min(v, __shfl_xor_sync(0xffffffffu, v, 8));
+  return min(v, __shfl_xor_sync(0xffffffffu, v, 16));
+}
+
 }  // namespace psam

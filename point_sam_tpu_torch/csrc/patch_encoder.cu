@@ -34,15 +34,21 @@
 //     fragments (shuffles over the row groups), merged per chunk into
 //     omax, written once. Warp (rg, cg) owns 32 rows x 32 columns of each
 //     256-column slice;
+//   - for the backward (K7), when asked: pool, and the first (smallest) row
+//     at which each column of a2 and of a4 reaches its max. a2's partial
+//     maxima carry their rows; a4's row is a second shuffle reduction on
+//     the fragments (the smallest valid row holding the chunk's max), so no
+//     (value, row) pair is carried through the accumulator loops;
 //   - every weight of stage 2 streams through one ring of 64-row x
 //     256-column slabs shared by all warps: two slots (2 x 33 KB), 16-byte
 //     cp.async issued one slab ahead, one barrier per slab; W1a and W1b are
 //     staged whole. Rows are padded by 16 bytes, so ldmatrix is free of bank
 //     conflicts.
-//   Shared memory at K = 256, h(128, 512) -> 512: 226,560 bytes (a2 68 KB,
-//   the chunk of u 65 KB, the ring 66 KB, vectors, maxima and the pooled
-//   tile 22 KB), so 1 block (16 warps, 128 registers a thread) per SM: two
-//   blocks would need <= 113 KB each, less than a2 and one chunk of u. A
+//   Shared memory at K = 256, h(128, 512) -> 512: 228,608 bytes (a2 68 KB,
+//   the chunk of u 65 KB, the ring 66 KB, vectors, maxima, their rows and
+//   the pooled tile 24 KB), so 1 block (16 warps, 128 registers a thread)
+//   per SM: two blocks would need <= 113 KB each, less than a2 and one
+//   chunk of u. A
 //   longer patch needs 17 KB more per 64 rows (K <= 256 at h0 = 128,
 //   h1 = 512); above the device's 227 KB the launch fails and the wrapper
 //   raises.
@@ -73,6 +79,10 @@ struct Params {
   const T* w2a; const float* b2a; const float* s2; const float* t2;
   const T* w2b; const float* b2b;
   T* out;
+  // The max-pools' first argmaxes for the backward (K7), all null or none:
+  // pool [B, G, h0] = max over K of a2, arg2 [B, G, h0] and arg4 [B, G,
+  // cout] the first (smallest) row at which a2 / a4 reach their maximum.
+  T* pool; int* arg2; int* arg4;
   int G, K, cin, h0, h1, cout, tanh_act;
 };
 
@@ -95,7 +105,7 @@ constexpr int kRows = 16;
 
 // Shared-memory layout, in floats; every buffer starts 32-byte aligned.
 struct Layout {
-  int xs, a, hbuf, u, y, pooled, up_pool, omax, total;
+  int xs, a, hbuf, u, y, pooled, up_pool, omax, parg, oarg, total;
   __host__ __device__ Layout(int cin, int h0, int h1, int cout) {
     int off = 0;
     auto take = [&](int floats) { const int at = off; off += pad8(floats); return at; };
@@ -107,6 +117,8 @@ struct Layout {
     pooled = take(h0);
     up_pool = take(h1);
     omax = take(cout);
+    parg = take(h0);  // int
+    oarg = take(cout);  // int
     total = off;
   }
 };
@@ -145,24 +157,45 @@ __global__ void __launch_bounds__(kThreads) patch_encoder_kernel(Params<T> p) {
   float* pooled = smem + L.pooled;
   float* up_pool = smem + L.up_pool;
   float* omax = smem + L.omax;
+  int* parg = reinterpret_cast<int*>(smem + L.parg);
+  int* oarg = reinterpret_cast<int*>(smem + L.oarg);
 
   const int gidx = blockIdx.x, b = blockIdx.y;
-  const T* xpatch = p.x + ((size_t)b * p.G + gidx) * p.K * p.cin;
+  const size_t patch = (size_t)b * p.G + gidx;
+  const T* xpatch = p.x + patch * p.K * p.cin;
 
-  for (int c = threadIdx.x; c < h0; c += blockDim.x) pooled[c] = -INFINITY;
-  for (int c = threadIdx.x; c < cout; c += blockDim.x) omax[c] = -INFINITY;
+  for (int c = threadIdx.x; c < h0; c += blockDim.x) {
+    pooled[c] = -INFINITY;
+    parg[c] = 0;
+  }
+  for (int c = threadIdx.x; c < cout; c += blockDim.x) {
+    omax[c] = -INFINITY;
+    oarg[c] = 0;
+  }
 
-  // Pass 1: stage 1 and the max over K.
+  // Pass 1: stage 1 and the max over K; the rows come in order, so a strict
+  // > keeps the first maximal row.
   for (int r0 = 0; r0 < p.K; r0 += kRows) {
     const int nr = min(kRows, p.K - r0);
     stage1<T>(p, xpatch, r0, nr, smem, L);
     for (int c = threadIdx.x; c < h0; c += blockDim.x) {
       float m = pooled[c];
-      for (int r = 0; r < nr; ++r) m = fmaxf(m, hbuf[r * h0 + c]);
+      int at = parg[c];
+      for (int r = 0; r < nr; ++r) {
+        const float v = hbuf[r * h0 + c];
+        if (v > m) at = r0 + r;
+        m = fmaxf(m, v);
+      }
       pooled[c] = m;
+      parg[c] = at;
     }
     __syncthreads();
   }
+  if (p.pool)
+    for (int c = threadIdx.x; c < h0; c += blockDim.x) {
+      p.pool[patch * h0 + c] = from_f32<T>(pooled[c]);
+      p.arg2[patch * h0 + c] = parg[c];
+    }
   // The pooled half of the stage-2 Dense is constant over K: one row.
   rows_matmul<T, 1>(pooled, h0, h0, p.w2a, h1, up_pool, h1);
   __syncthreads();
@@ -181,13 +214,21 @@ __global__ void __launch_bounds__(kThreads) patch_encoder_kernel(Params<T> p) {
     for (int o = threadIdx.x; o < cout; o += blockDim.x) {
       const float bias = round_to<T>(p.b2b[o]);
       float m = omax[o];
-      for (int r = 0; r < nr; ++r) m = fmaxf(m, round_to<T>(round_to<T>(y[r * cout + o]) + bias));
+      int at = oarg[o];
+      for (int r = 0; r < nr; ++r) {
+        const float v = round_to<T>(round_to<T>(y[r * cout + o]) + bias);
+        if (v > m) at = r0 + r;
+        m = fmaxf(m, v);
+      }
       omax[o] = m;
+      oarg[o] = at;
     }
     __syncthreads();
   }
-  for (int o = threadIdx.x; o < cout; o += blockDim.x)
-    p.out[((size_t)b * p.G + gidx) * cout + o] = from_f32<T>(omax[o]);
+  for (int o = threadIdx.x; o < cout; o += blockDim.x) {
+    p.out[patch * cout + o] = from_f32<T>(omax[o]);
+    if (p.arg4) p.arg4[patch * cout + o] = oarg[o];
+  }
 }
 
 // ------------------------------------------------------- tensor-core path
@@ -209,7 +250,7 @@ __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 // weights and input tiles and stage 2's chunk of u share their bytes.
 struct MmaLayout {
   int kp, cinp, xslots;
-  size_t a2, w1a, w1b, xw, g3, ring, ptile, part, up, omax, vec, total;
+  size_t a2, w1a, w1b, xw, g3, ring, ptile, up, omax, oarg, vec, total;
   __host__ __device__ MmaLayout(int K, int cin, int h0, int h1, int cout) {
     kp = round_up(K, kChunk);
     cinp = round_up(cin, 16);
@@ -232,11 +273,14 @@ struct MmaLayout {
     off = shared_at;
     g3 = take((size_t)kChunk * (h1 + 8) * 2);
     off = off > stage1_end ? off : stage1_end;
+    // The max-pool's partials (kMmaThreads values and rows) use g3's bytes.
+    const size_t part_end = shared_at + (size_t)2 * kMmaThreads * 4;
+    off = off > part_end ? off : part_end;
     ring = take((size_t)kStages * kSlabK * kLdSlab * 2);
     ptile = take((size_t)16 * (h0 + 8) * 2);
-    part = take((size_t)kMmaThreads * 4);
     up = take((size_t)h1 * 4);
     omax = take((size_t)2 * cout * 4);
+    oarg = take((size_t)2 * cout * 4);
     vec = take((size_t)(4 * h0 + 3 * h1 + cout) * 4);
     total = off;
   }
@@ -261,9 +305,10 @@ __global__ void __launch_bounds__(kMmaThreads, 1) patch_encoder_mma_kernel(Param
   bf16* const g3 = reinterpret_cast<bf16*>(base + L.g3);
   bf16* const ring = reinterpret_cast<bf16*>(base + L.ring);
   bf16* const ptile = reinterpret_cast<bf16*>(base + L.ptile);
-  float* const part = reinterpret_cast<float*>(base + L.part);
   float* const up = reinterpret_cast<float*>(base + L.up);
   float* const omax = reinterpret_cast<float*>(base + L.omax);
+  int* const oarg = reinterpret_cast<int*>(base + L.oarg);
+  const bool track = p.arg4 != nullptr;  // keep the first argmaxes
   // The per-column vectors, biases already rounded to bf16.
   float* const b1a = reinterpret_cast<float*>(base + L.vec);
   float* const s1 = b1a + h0;
@@ -338,6 +383,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1) patch_encoder_mma_kernel(Param
   for (int i = tid; i < cout; i += kMmaThreads) {
     b2b[i] = round_to<bf16>(p.b2b[i]);
     omax[i] = omax[cout + i] = -INFINITY;
+    oarg[i] = oarg[cout + i] = K;  // no row yet
   }
   for (int i = tid; i < 16 * lda; i += kMmaThreads) ptile[i] = zero;
   for (int i = tid; i < L.xslots * 16 * ldx; i += kMmaThreads) xw[i] = zero;
@@ -443,19 +489,39 @@ __global__ void __launch_bounds__(kMmaThreads, 1) patch_encoder_mma_kernel(Param
   __syncthreads();
   // pooled = max over the K valid rows of a2: kMmaThreads / h0 threads a
   // column over strided rows, then over those partial maxima; it becomes
-  // row 0 of the zero tile ptile.
+  // row 0 of the zero tile ptile. Each partial keeps its first maximal row
+  // (its rows come in order), and a tie between partials goes to the
+  // smaller row. The partials lie in g3's bytes, unused until stage 2.
   {
+    float* const part = reinterpret_cast<float*>(base + L.g3);
+    int* const parg = reinterpret_cast<int*>(part + kMmaThreads);
     const int nq = kMmaThreads / h0, c = tid % h0, q = tid / h0;
     if (q < nq) {
       float m = -INFINITY;
-      for (int r = q; r < K; r += nq) m = fmaxf(m, __bfloat162float(a2[r * lda + c]));
+      int at = K;
+      for (int r = q; r < K; r += nq) {
+        const float v = __bfloat162float(a2[r * lda + c]);
+        if (v > m) at = r;
+        m = fmaxf(m, v);
+      }
       part[q * h0 + c] = m;
+      parg[q * h0 + c] = at;
     }
     __syncthreads();
     for (int i = tid; i < h0; i += kMmaThreads) {
       float mx = part[i];
-      for (int w = 1; w < nq; ++w) mx = fmaxf(mx, part[w * h0 + i]);
+      int at = parg[i];
+      for (int w = 1; w < nq; ++w) {
+        const float v = part[w * h0 + i];
+        const int r = parg[w * h0 + i];
+        if (v > mx || (v == mx && r < at)) at = r;
+        mx = fmaxf(mx, v);
+      }
       ptile[i] = __float2bfloat16_rn(mx);
+      if (track) {
+        p.pool[patch * h0 + i] = ptile[i];
+        p.arg2[patch * h0 + i] = at < K ? at : 0;
+      }
     }
   }
 
@@ -571,7 +637,10 @@ __global__ void __launch_bounds__(kMmaThreads, 1) patch_encoder_mma_kernel(Param
       }
     }
     // y = round(round(g3 W2b) + round(b2b)); its max over the chunk's valid
-    // rows by shuffles, merged into omax[rg] (one owner per entry).
+    // rows by shuffles, merged into omax[rg] (one owner per entry). With
+    // ``track``, a second reduction finds the smallest valid row that holds
+    // that max; the chunks come in row order, so a later chunk takes over
+    // oarg[rg] only with a larger max.
     for (int sl = 0; sl < nout; ++sl) {
       const int wc = sl * kSlabN + kGroupN * cg;
       zero_acc(acc);
@@ -594,14 +663,38 @@ __global__ void __launch_bounds__(kMmaThreads, 1) patch_encoder_mma_kernel(Param
               if (r0 + 32 * rg + 16 * mt + g + 8 * h < K)
                 m = fmaxf(m, round_to<bf16>(round_to<bf16>(acc[mt][j][2 * h + e]) + b2b[col + e]));
           m = rows_max(m);
-          if (g == 0) omax[rg * cout + col + e] = fmaxf(omax[rg * cout + col + e], m);
+          float* const om = omax + rg * cout + col + e;
+          if (track) {
+            int at = K;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = r0 + 32 * rg + 16 * mt + g + 8 * h;
+                if (r < K &&
+                    round_to<bf16>(round_to<bf16>(acc[mt][j][2 * h + e]) + b2b[col + e]) == m)
+                  at = min(at, r);
+              }
+            at = rows_min(at);
+            if (g == 0 && m > *om) oarg[rg * cout + col + e] = at;
+          }
+          if (g == 0) *om = fmaxf(*om, m);
         }
       }
     }
   }
   __syncthreads();
-  for (int o = tid; o < cout; o += kMmaThreads)
-    p.out[patch * cout + o] = __float2bfloat16_rn(fmaxf(omax[o], omax[cout + o]));
+  for (int o = tid; o < cout; o += kMmaThreads) {
+    const float m0 = omax[o], m1 = omax[cout + o];
+    p.out[patch * cout + o] = __float2bfloat16_rn(fmaxf(m0, m1));
+    if (track) {
+      // Row group 1's rows interleave with group 0's by chunk: on a tie the
+      // smaller row wins.
+      const int a0 = oarg[o], a1 = oarg[cout + o];
+      const int at = m1 > m0 || (m1 == m0 && a1 < a0) ? a1 : a0;
+      p.arg4[patch * cout + o] = at < K ? at : 0;
+    }
+  }
 }
 
 // The most dynamic shared memory a block of the current device may use.
@@ -645,7 +738,8 @@ template <typename T>
 int run(const void* x, int B, int G, int K, int cin, const void* w1a, const void* b1a,
         const void* s1, const void* t1, const void* w1b, const void* b1b, const void* w2a,
         const void* b2a, const void* s2, const void* t2, const void* w2b, const void* b2b,
-        int h0, int h1, int cout, void* out, int tanh_act, cudaStream_t stream) {
+        int h0, int h1, int cout, void* out, void* pool, void* arg2, void* arg4, int tanh_act,
+        cudaStream_t stream) {
   Params<T> p;
   p.x = static_cast<const T*>(x);
   p.w1a = static_cast<const T*>(w1a);
@@ -661,6 +755,9 @@ int run(const void* x, int B, int G, int K, int cin, const void* w1a, const void
   p.w2b = static_cast<const T*>(w2b);
   p.b2b = static_cast<const float*>(b2b);
   p.out = static_cast<T*>(out);
+  p.pool = static_cast<T*>(pool);
+  p.arg2 = static_cast<int*>(arg2);
+  p.arg4 = static_cast<int*>(arg4);
   p.G = G;
   p.K = K;
   p.cin = cin;
@@ -675,24 +772,28 @@ int run(const void* x, int B, int G, int K, int cin, const void* w1a, const void
 
 // x [B, G*K, cin] and the weight matrices ([in, out] row-major) in the
 // compute dtype (0 = float32, 1 = bfloat16); biases and LN parameters fp32;
-// out [B, G, cout] in the compute dtype; h0, h1 <= 512. The bf16 kernel
-// copies the weight matrices by 16-byte cp.async: their pointers must be
-// 16-byte aligned, as fresh torch allocations are, else the call returns
+// out [B, G, cout] in the compute dtype; h0, h1 <= 512. pool [B, G, h0] (the
+// compute dtype), arg2 [B, G, h0] and arg4 [B, G, cout] (int32) are the
+// max-pools' values and first argmaxes for the backward: all three null
+// (nothing more is stored) or none. The bf16 kernel copies the weight
+// matrices by 16-byte cp.async: their pointers must be 16-byte aligned, as
+// fresh torch allocations are, else the call returns
 // cudaErrorMisalignedAddress.
 extern "C" int psam_patch_encoder(const void* x, int B, int G, int K, int cin,
                                   const void* w1a, const void* b1a, const void* s1,
                                   const void* t1, const void* w1b, const void* b1b,
                                   const void* w2a, const void* b2a, const void* s2,
                                   const void* t2, const void* w2b, const void* b2b, int h0,
-                                  int h1, int cout, void* out, int tanh_act, int dtype,
-                                  void* stream) {
+                                  int h1, int cout, void* out, void* pool, void* arg2,
+                                  void* arg4, int tanh_act, int dtype, void* stream) {
   if (B <= 0 || G <= 0 || K <= 0 || cin <= 0 || h0 <= 0 || h1 <= 0 || cout <= 0 ||
-      h0 > 32 * psam::kMaxPerLane || h1 > 32 * psam::kMaxPerLane)
+      h0 > 32 * psam::kMaxPerLane || h1 > 32 * psam::kMaxPerLane ||
+      (pool == nullptr) != (arg2 == nullptr) || (pool == nullptr) != (arg4 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return run<bf16>(x, B, G, K, cin, w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b,
-                     h0, h1, cout, out, tanh_act, st);
+                     h0, h1, cout, out, pool, arg2, arg4, tanh_act, st);
   return run<float>(x, B, G, K, cin, w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b,
-                    h0, h1, cout, out, tanh_act, st);
+                    h0, h1, cout, out, pool, arg2, arg4, tanh_act, st);
 }

@@ -1,27 +1,37 @@
 // K7: backward of the fused PointNet patch encoder K2.
 //
 // Replaces point_sam_tpu/ops/patch_encoder_pallas.py::patch_encoder_fused_bwd
-// (_bwd_kernel). Per patch of K grouped points it recomputes the forward
-// as K2 does (stage 1 Dense -> LN -> GELU -> Dense, the max-pool, the
-// pooled / pointwise split of the stage-2 Dense, LN -> GELU, the last
-// Dense), then runs the reference's backward chain:
-//   da4 = first-max pool backward of dout          dw2b, db2b
+// (_bwd_kernel). Per patch of K grouped points it takes K2's saved
+// max-pools (pool = max over K of a2, and the first argmax rows arg2 of a2
+// and arg4 of a4), recomputes the forward as K2 does (stage 1 Dense -> LN
+// -> GELU -> Dense, the pooled / pointwise split of the stage-2 Dense,
+// LN -> GELU), then runs the reference's backward chain:
+//   da4 = first-max pool backward of dout (rows arg4)   dw2b, db2b
 //   dg3 = da4c w2b^T -> GELU' -> LN backward        ds2, dt2, da3
 //   dw2a = [pool^T sum_K da3 ; a2^T da3], db2a
-//   da2 = da3 w2x^T + first-max pool backward of (sum_K da3) w2p^T
+//   da2 = da3 w2x^T + first-max pool backward of (sum_K da3) w2p^T (rows arg2)
 //   dw1b, db1b; dg1 = da2c w1b^T -> GELU' -> LN backward -> ds1, dt1, da1
 //   dw1a, db1a; dx = da1 w1a^T (only when asked for)
 // with matmul operands rounded to the compute dtype where the reference
 // rounds them (da4c, da3, da2c, da1), fp32 accumulation, and every
 // max-pool gradient routed to the FIRST maximal row of its column.
 //
+// Where the argmaxes come from: K2's forward computes both max-pools
+// anyway, so it keeps each column's first maximal row (B*G*(h0 + cout)
+// int32, 6 MB at the train shapes) and the autograd Function saves them.
+// Finding them here again took two more passes over every patch (stage 1
+// for a2's max, then stage 1, stage 2 and the widest product, g3 w2b, for
+// a4's only): about half of this kernel's tensor work. K2's a2 and a4 come
+// from mma.sync in another summation order than the recompute here, so the
+// pooled gradients go to K2's rows and the values at those rows are
+// recomputed here: the reference's arithmetic up to rounding.
+//
 // What bounds it on the H100: like K2, the [G*K, 512] hidden activations
 // (0.5-1 GB per tensor at the train shapes) must not go through device
-// memory, so they are recomputed per 16-row tile; the work is then ~2.5x
-// K2's matmuls. The one exception is the stage-1 output gradient da2
-// (fp32 [rows, h0], 0.27-0.54 GB at the train shapes): it needs the whole
-// patch's sum of da3 before it is complete, so it goes to a workspace and
-// is read back once.
+// memory, so they are recomputed per 16-row tile. The one exception is the
+// stage-1 output gradient da2 (fp32 [rows, h0], 0.27-0.54 GB at the train
+// shapes): it needs the whole patch's sum of da3 before it is complete, so
+// it goes to a workspace and is read back once.
 // Design: on the TPU the parameter grads add up over a sequential grid;
 // here blocks run in no order. So the kernel runs one persistent block per
 // SM; block s walks the patches s, s + nblocks, ... in order and adds its
@@ -37,12 +47,10 @@
 // (a^T b over the tile's rows) add their 16x16 tiles straight into the
 // block's workspace slice. The narrow products (C_in columns), the sparse
 // max-pool ones and the fp32 path run as FMA loops.
-// Per patch, four passes over its rows:
-//   A: stage 1 -> max-pool of a2 and its first argmax per column;
-//   B: stage 1 + 2 -> first argmax of a4 per column;
+// Per patch, two passes over its rows:
 //   C: stage 1 + stage-2 up to GELU -> the stage-2 backward, da2's
 //      pointwise part to the workspace; then the pooled branch;
-//   D: stage 1 -> the stage-1 backward, dx.
+//   D: stage 1 without its second Dense -> the stage-1 backward, dx.
 #include <mma.h>
 
 #include <algorithm>
@@ -63,10 +71,12 @@ template <typename T>
 struct Params {
   const T* x;     // [B, G*K, cin]
   const T* dout;  // [B, G, cout]
+  // K2's saved max-pools: pool [B, G, h0] (max over K of a2), arg2 [B, G,
+  // h0] and arg4 [B, G, cout], their first argmax rows.
+  const T* pool; const int* arg2; const int* arg4;
   const T* w1a; const float* b1a; const float* s1; const float* t1;
   const T* w1b; const float* b1b;
   const T* w2a; const float* b2a; const float* s2; const float* t2;
-  const T* w2b; const float* b2b;
   // Transposed copies [out, in]: w1a^T [h0, cin], w1b^T [h0, h0],
   // w2a[:h0]^T [h1, h0], w2a[h0:]^T [h1, h0], w2b^T [cout, h1].
   const T* w1aT; const T* w1bT; const T* w2pT; const T* w2xT; const T* w2bT;
@@ -97,13 +107,13 @@ struct GradOffsets {
 struct Layout {
   int ldx, ldt, ldb0, ldb1;  // ldb0 / ldb1: row strides of the bf16 copies
   int xs, a1, g1, a2, a3, g3, t3, m1, inv1, m3, inv3;
-  int g1b, a2b, d2b, g3b, d3b;  // bf16 copies of the product operands
-  int pool, arg2, up_pool, amax4, arg4, dov, d3, dpool;
+  int g1b, a2b, d2b, d3b;  // bf16 copies of the product operands
+  int pool, arg2, up_pool, arg4, dov, d3, dpool;
   int cstart, corder;  // the columns sorted by their a4 argmax row
   int vb1a, vs1, vt1, vb1b, vb2a, vs2, vt2, vb2b, total;
   __host__ __device__ Layout(int cin, int h0, int h1, int cout, int K) {
     ldx = pad8(cin);
-    ldt = pad8(h1 > cout ? h1 : cout);
+    ldt = pad8(h1 > h0 ? h1 : h0);
     ldb0 = pad8(h0) + 8;  // +8 against shared-memory bank conflicts
     ldb1 = pad8(h1) + 8;
     int off = 0;
@@ -114,10 +124,10 @@ struct Layout {
     // a2b and d3b hold two tiles (slots), so that pass C adds a^T b into the
     // workspace once per two tiles.
     g1b = take(kRows * ldb0 / 2); a2b = take(kRows * ldb0); d2b = take(kRows * ldb0 / 2);
-    g3b = take(kRows * ldb1 / 2); d3b = take(kRows * ldb1);
+    d3b = take(kRows * ldb1);
     m1 = take(kRows); inv1 = take(kRows); m3 = take(kRows); inv3 = take(kRows);
     pool = take(h0); arg2 = take(h0); up_pool = take(h1);
-    amax4 = take(cout); arg4 = take(cout); dov = take(cout); d3 = take(h1); dpool = take(h0);
+    arg4 = take(cout); dov = take(cout); d3 = take(h1); dpool = take(h0);
     cstart = take(K + 1); corder = take(cout);
     vb1a = take(h0); vs1 = take(h0); vt1 = take(h0); vb1b = take(h0);
     vb2a = take(h1); vs2 = take(h1); vt2 = take(h1); vb2b = take(cout);
@@ -361,8 +371,7 @@ __device__ void stage2_act(const Params<T>& p, float* sm, const Layout& L, const
                    nullptr, 0);
   __syncthreads();
   ln_act_rows<T>(sm + L.a3, p.h1, kRows, p.h1, p.s2, p.t2, p.tanh_act != 0, sm + L.g3, p.h1,
-                 sm + L.m3, sm + L.inv3, tc ? reinterpret_cast<bf16*>(sm + L.g3b) : nullptr,
-                 L.ldb1);
+                 sm + L.m3, sm + L.inv3, nullptr, 0);
   __syncthreads();
 }
 
@@ -378,11 +387,9 @@ __global__ void __launch_bounds__(kThreads) patch_encoder_bwd_kernel(Params<T> p
   bf16* a2b = reinterpret_cast<bf16*>(sm + L.a2b);
   bf16* g1b = reinterpret_cast<bf16*>(sm + L.g1b);
   bf16* d2b = reinterpret_cast<bf16*>(sm + L.d2b);
-  bf16* g3b = reinterpret_cast<bf16*>(sm + L.g3b);
   bf16* d3b = reinterpret_cast<bf16*>(sm + L.d3b);
   float* pool = sm + L.pool;
   int* arg2 = reinterpret_cast<int*>(sm + L.arg2);
-  float* amax4 = sm + L.amax4;
   int* arg4 = reinterpret_cast<int*>(sm + L.arg4);
   float* dov = sm + L.dov;
   int* cstart = reinterpret_cast<int*>(sm + L.cstart);
@@ -396,53 +403,19 @@ __global__ void __launch_bounds__(kThreads) patch_encoder_bwd_kernel(Params<T> p
   for (int pi = blockIdx.x; pi < p.npatch; pi += gridDim.x) {
     const T* xpatch = p.x + (size_t)pi * K * p.cin;
     float* da2 = p.da2 + (size_t)pi * K * h0;
+    // The max-pools and their first argmaxes, as K2's forward found them.
     for (int i = threadIdx.x; i < h0; i += blockDim.x) {
-      pool[i] = -INFINITY;
-      arg2[i] = 0;
+      pool[i] = to_f32<T>(p.pool[(size_t)pi * h0 + i]);
+      arg2[i] = p.arg2[(size_t)pi * h0 + i];
     }
     for (int c = threadIdx.x; c < cout; c += blockDim.x) {
-      amax4[c] = -INFINITY;
-      arg4[c] = 0;
+      arg4[c] = p.arg4[(size_t)pi * cout + c];
       dov[c] = to_f32<T>(p.dout[(size_t)pi * cout + c]);
     }
     for (int j = threadIdx.x; j < h1; j += blockDim.x) d3[j] = 0.0f;
-
-    // Pass A: the max-pool of a2 and its first argmax.
-    for (int r0 = 0; r0 < K; r0 += kRows) {
-      const int nr = min(kRows, K - r0);
-      stage1<T>(p, xpatch, r0, nr, sm, L, true, a2b);
-      for (int i = threadIdx.x; i < h0; i += blockDim.x)
-        for (int r = 0; r < nr; ++r) {
-          const float v = sm[L.a2 + r * h0 + i];
-          if (v > pool[i]) {
-            pool[i] = v;
-            arg2[i] = r0 + r;
-          }
-        }
-      __syncthreads();
-    }
+    __syncthreads();
     rows_matmul<T, 1>(pool, h0, h0, p.w2a, h1, sm + L.up_pool, h1);
     __syncthreads();
-
-    // Pass B: the first argmax of a4 = round(round(g3 @ w2b) + round(b2b)).
-    for (int r0 = 0; r0 < K; r0 += kRows) {
-      const int nr = min(kRows, K - r0);
-      stage1<T>(p, xpatch, r0, nr, sm, L, true, a2b);
-      stage2_act<T>(p, sm, L, a2b);
-      mm16<T>(tc, sm + L.g3, h1, g3b, L.ldb1, h1, p.w2b, cout, t3, ldt);
-      __syncthreads();
-      for (int c = threadIdx.x; c < cout; c += blockDim.x) {
-        const float bias = round_to<T>(p.b2b[c]);
-        for (int r = 0; r < nr; ++r) {
-          const float v = round_to<T>(round_to<T>(t3[r * ldt + c]) + bias);
-          if (v > amax4[c]) {
-            amax4[c] = v;
-            arg4[c] = r0 + r;
-          }
-        }
-      }
-      __syncthreads();
-    }
 
     // The columns in order of their argmax row (and of c within a row), so
     // that a tile visits only its own columns. One thread: the order, and so
@@ -615,15 +588,26 @@ int num_sms() {
   return n > 0 ? n : 1;
 }
 
+// The most dynamic shared memory a block of the current device may use.
+int smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// The kernel's shared-memory limit is raised to the device's maximum once
+// per instantiation, at its first launch (the port runs on one device); a
+// launch that needs more fails and its error is returned.
 template <typename T>
 int run(const Params<T>& p, int nslices, float* grads, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      patch_encoder_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin());
+  if (attr != cudaSuccess) return (int)attr;
   const Layout L(p.cin, p.h0, p.h1, p.cout, p.K);
   const size_t smem = (size_t)L.total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(patch_encoder_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   patch_encoder_bwd_kernel<T><<<nslices, kThreads, smem, stream>>>(p);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
   reduce_slices_kernel<<<(O.total + 255) / 256, 256, 0, stream>>>(p.work, nslices, O, p.h1,
@@ -641,22 +625,25 @@ extern "C" int psam_patch_encoder_bwd_slices(int npatch) {
 
 // x [B, G*K, cin], dout [B, G, cout] and the weight matrices ([in, out]) and
 // their transposes ([out, in]) in the compute dtype (0 = float32,
-// 1 = bfloat16); biases and LN parameters fp32. dx: [B, G*K, cin] in the
-// compute dtype, or null. da2: fp32 workspace [B*G*K, h0]. work: fp32
-// [nslices, 12 grads], zeroed. grads: fp32, the 12 parameter grads
-// flattened in order. h0, h1, cout <= 512.
-extern "C" int psam_patch_encoder_bwd(const void* x, const void* dout, int B, int G, int K,
+// 1 = bfloat16); biases and LN parameters fp32. pool [B, G, h0] (compute
+// dtype), arg2 [B, G, h0] and arg4 [B, G, cout] (int32, rows in [0, K)):
+// K2's saved max-pools and first argmaxes for the same x and weights.
+// dx: [B, G*K, cin] in the compute dtype, or null. da2: fp32 workspace
+// [B*G*K, h0]. work: fp32 [nslices, 12 grads], zeroed. grads: fp32, the 12
+// parameter grads flattened in order. h0, h1, cout <= 512.
+extern "C" int psam_patch_encoder_bwd(const void* x, const void* dout, const void* pool,
+                                      const void* arg2, const void* arg4, int B, int G, int K,
                                       int cin, const void* w1a, const void* b1a, const void* s1,
                                       const void* t1, const void* w1b, const void* b1b,
                                       const void* w2a, const void* b2a, const void* s2,
-                                      const void* t2, const void* w2b, const void* b2b,
-                                      const void* w1aT, const void* w1bT, const void* w2pT,
-                                      const void* w2xT, const void* w2bT, int h0, int h1,
-                                      int cout, void* dx, void* da2, void* work, int nslices,
-                                      void* grads, int tanh_act, int dtype, void* stream) {
+                                      const void* t2, const void* w1aT, const void* w1bT,
+                                      const void* w2pT, const void* w2xT, const void* w2bT,
+                                      int h0, int h1, int cout, void* dx, void* da2, void* work,
+                                      int nslices, void* grads, int tanh_act, int dtype,
+                                      void* stream) {
   const int lim = 32 * psam::kMaxPerLane;
   if (B <= 0 || G <= 0 || K <= 0 || cin <= 0 || h0 <= 0 || h1 <= 0 || cout <= 0 ||
-      h0 > lim || h1 > lim || cout > lim || nslices <= 0)
+      h0 > lim || h1 > lim || cout > lim || nslices <= 0 || !pool || !arg2 || !arg4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto fill = [&](auto* typed) {
@@ -664,6 +651,9 @@ extern "C" int psam_patch_encoder_bwd(const void* x, const void* dout, int B, in
     Params<T> p;
     p.x = static_cast<const T*>(x);
     p.dout = static_cast<const T*>(dout);
+    p.pool = static_cast<const T*>(pool);
+    p.arg2 = static_cast<const int*>(arg2);
+    p.arg4 = static_cast<const int*>(arg4);
     p.w1a = static_cast<const T*>(w1a);
     p.b1a = static_cast<const float*>(b1a);
     p.s1 = static_cast<const float*>(s1);
@@ -674,8 +664,6 @@ extern "C" int psam_patch_encoder_bwd(const void* x, const void* dout, int B, in
     p.b2a = static_cast<const float*>(b2a);
     p.s2 = static_cast<const float*>(s2);
     p.t2 = static_cast<const float*>(t2);
-    p.w2b = static_cast<const T*>(w2b);
-    p.b2b = static_cast<const float*>(b2b);
     p.w1aT = static_cast<const T*>(w1aT);
     p.w1bT = static_cast<const T*>(w1bT);
     p.w2pT = static_cast<const T*>(w2pT);

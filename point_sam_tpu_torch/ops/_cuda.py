@@ -43,15 +43,15 @@ _SIGNATURES = {
     "psam_patch_encoder": [_P, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _P, _I, _I, _P],
+                           _I, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "psam_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "psam_interp_upscale": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _P],
     "psam_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                            _P],
-    "psam_patch_encoder_bwd": [_P, _P, _I, _I, _I, _I,
+    "psam_patch_encoder_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P,
                                _P, _P, _P, _P, _P,
                                _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P],
     "psam_patch_encoder_bwd_slices": [_I],

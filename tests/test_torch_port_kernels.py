@@ -17,9 +17,10 @@ the division may round differently). K9 is exact (K1's outputs and the
 kNN ids). K11 as K4. The backward
 kernels: K6 1e-5 (fp32) / 2e-2 (bf16) of the largest grad; K7 in fp32 1e-4
 of each grad's largest entry, in bf16 5e-2 in norm (||diff|| / ||plain||):
-a 1-ulp bf16 difference in a recomputed activation (another summation
-order of a LayerNorm) can move a max-pool's first argmax to another row,
-which moves that column's whole gradient there.
+both sides route the max-pool grads to the rows K2 saved, but K7
+recomputes the activations in another summation order. K2's argmax
+outputs: in fp32 on integer-valued inputs the rows equal plain's; in bf16
+the plain value at each row lies within one ulp of its column's max.
 """
 
 import importlib
@@ -136,7 +137,8 @@ def test_wrappers_refuse_cpu_tensors():
             to(rng.standard_normal((1, 32, 6)).astype(np.float32), "cpu"),
             to(pe_params(rng, 6, 8, 16, 8), "cpu"),
             to(rng.standard_normal((1, 4, 8)).astype(np.float32), "cpu"), num_groups=4,
-            group_size=8, cdt=torch.float32)
+            group_size=8, cdt=torch.float32,
+            saved=(torch.zeros(1, 4, 8), *(torch.zeros(1, 4, 8, dtype=torch.int32),) * 2))
     with pytest.raises(ValueError, match="CUDA"):
         F.fps_interp_knn_cuda(to(rng.standard_normal((1, 4096, 3)).astype(np.float32), "cpu"),
                               8, 8)
@@ -216,6 +218,105 @@ def test_k2_kernel_repeats_bit_for_bit(cuda, dtype):
     second = PE.patch_encoder_cuda(x, params, **kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# (B, G, K, C_in, h0, h1, C_out): a serve, a hier level-2 and a train shape.
+K2_ARGMAX_SHAPES = [pytest.param(1, 2048, 256, 6, 128, 512, 512, id="serve"),
+                    pytest.param(1, 512, 32, 131, 128, 256, 512, id="hier"),
+                    pytest.param(4, 1024, 256, 4, 128, 512, 256, id="train")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,G,K,cin,h0,h1,cout", K2_ARGMAX_SHAPES)
+def test_k2_argmax_outputs_leave_out_unchanged(cuda, dtype, B, G, K, cin, h0, h1, cout):
+    """Asking K2 for the max-pools' argmaxes (the FMA kernel in fp32, the
+    mma kernel in bf16) leaves its output bit-equal."""
+    rng = np.random.default_rng(23)
+    params = to(pe_params(rng, cin, h0, h1, cout), cuda)
+    x = to(rng.standard_normal((B, G * K, cin)).astype(np.float32), cuda)
+    kw = dict(num_groups=G, group_size=K, cdt=dtype)
+    out, (pool, arg2, arg4) = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+    assert pool.shape == arg2.shape == (B, G, h0) and arg4.shape == (B, G, cout)
+    assert pool.dtype == dtype and arg2.dtype == arg4.dtype == torch.int32
+    assert torch.equal(out, PE.patch_encoder_cuda(x, params, **kw))
+
+
+def pe_ties(x):
+    """Duplicate rows of x [B, G, K, C_in] in place: row 1 = row 0 (one
+    fragment), 5 = 3, and for longer patches 40 = 3 (another row group) and
+    70 = 10 (another 64-row chunk). None of 1, 5, 40, 70 is ever a first
+    maximum."""
+    x[:, :, 1] = x[:, :, 0]
+    x[:, :, 5] = x[:, :, 3]
+    if x.shape[2] > 70:
+        x[:, :, 40] = x[:, :, 3]
+        x[:, :, 70] = x[:, :, 10]
+    return (1, 5, 40, 70)
+
+
+def pe_stages(x, params, G, K, cdt, act):
+    """The plain forward's a2 [B, G, K, h0] and a4 [B, G, K, C_out]."""
+    w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b = params
+    x = x.reshape(x.shape[0], G, K, -1)
+    a2 = PE._dense(PE.ln_gelu(PE._dense(x, w1a, b1a, cdt), s1, t1, cdt, act), w1b, b1b, cdt)
+    h0 = a2.shape[-1]
+    pooled = PE.first_max(a2, 2)
+    up = (torch.matmul(a2.float(), w2a[h0:].to(cdt).float())
+          + torch.matmul(pooled.float(), w2a[:h0].to(cdt).float())[:, :, None])
+    a3 = up.to(cdt) + b2a.to(cdt)
+    return a2, PE._dense(PE.ln_gelu(a3, s2, t2, cdt, act), w2b, b2b, cdt)
+
+
+# (G, K, C_in, h0, h1, C_out)
+K2_TIE_SHAPES = [(8, 32, 6, 64, 128, 128), (4, 77, 4, 128, 512, 256), (2, 256, 6, 128, 512, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+@pytest.mark.parametrize("G,K,cin,h0,h1,cout", K2_TIE_SHAPES)
+def test_k2_argmax_fp32_equals_plain(cuda, act, G, K, cin, h0, h1, cout):
+    """fp32 (the FMA kernel) on integer-valued inputs with duplicated rows:
+    arg2 and arg4 equal the plain version's exactly, pool within 1e-4."""
+    rng = np.random.default_rng(24)
+    params = to(pe_params(rng, cin, h0, h1, cout), cuda)
+    x = rng.integers(-3, 4, (2, G, K, cin)).astype(np.float32)
+    dup = pe_ties(x)
+    x = to(x.reshape(2, G * K, cin), cuda)
+    kw = dict(num_groups=G, group_size=K, cdt=torch.float32, act=act, return_argmax=True)
+    _, got = PE.patch_encoder_cuda(x, params, **kw)
+    _, want = PE.patch_encoder_plain(x, params, **kw)
+    assert_rel(got[0], want[0], 1e-4)
+    for g_, w_ in zip(got[1:], want[1:]):
+        assert torch.equal(g_, w_)
+        assert not any(bool((g_ == r).any()) for r in dup)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+@pytest.mark.parametrize("G,K,cin,h0,h1,cout", K2_TIE_SHAPES)
+def test_k2_argmax_bf16_rows_hold_the_max(cuda, act, G, K, cin, h0, h1, cout):
+    """bf16 (the mma kernel), duplicated rows: at each column's arg2 / arg4
+    row the plain version's a2 / a4 lies within one bf16 ulp of that
+    column's plain maximum; pool too; no later duplicate is ever chosen
+    (the first row wins at every level of the reduction)."""
+    rng = np.random.default_rng(25)
+    params = to(pe_params(rng, cin, h0, h1, cout), cuda)
+    x = rng.standard_normal((2, G, K, cin)).astype(np.float32)
+    dup = pe_ties(x)
+    x = to(x.reshape(2, G * K, cin), cuda, torch.bfloat16)
+    kw = dict(num_groups=G, group_size=K, cdt=torch.bfloat16, act=act)
+    _, (pool, arg2, arg4) = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+    a2, a4 = (a.float() for a in pe_stages(x, params, G, K, torch.bfloat16, act))
+    for a, arg in ((a2, arg2), (a4, arg4)):
+        top = a.amax(2)
+        at = torch.take_along_dim(a, arg.long()[:, :, None], 2).squeeze(2)
+        ulp = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(1e-30))) - 7)
+        assert bool((at >= top - ulp).all())
+        assert not any(bool((arg == r).any()) for r in dup)
+    top = a2.amax(2)
+    ulp = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(1e-30))) - 7)
+    assert bool(((pool.float() - top).abs() <= ulp).all())
 
 
 def qkv_inputs(rng, shape, big):
@@ -368,11 +469,14 @@ def pe_bwd_case(rng, device, dtype, G, K, cin, cout, ties=False):
 @pytest.mark.parametrize("act", ["erf", "tanh"])
 @pytest.mark.parametrize("G,K,cin,cout", [(8, 20, 6, 40), (4, 24, 4, 256), (6, 20, 6, 512)])
 def test_k7_kernel_matches_plain(cuda, dtype, act, G, K, cin, cout):
+    """K7 given K2's saved max-pools against the plain backward given the
+    same ones."""
     rng = np.random.default_rng(7)
     x, params, do = pe_bwd_case(rng, cuda, dtype, G, K, cin, cout)
     kw = dict(num_groups=G, group_size=K, cdt=dtype, act=act)
-    gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, **kw)
-    wdx, wdp = PE.patch_encoder_bwd_plain(x, params, do, **kw)
+    _, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+    gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, saved=saved, **kw)
+    wdx, wdp = PE.patch_encoder_bwd_plain(x, params, do, saved=saved, **kw)
     torch.cuda.synchronize()
     assert gdx.dtype == dtype and gdx.shape == x.shape
     for g_, w_ in zip((gdx, *gdp), (wdx, *wdp)):
@@ -382,9 +486,26 @@ def test_k7_kernel_matches_plain(cuda, dtype, act, G, K, cin, cout):
         else:
             assert_norm(g_, w_, 5e-2)
     # dx is optional and the parameter grads do not depend on it.
-    ndx, ndp = PE.patch_encoder_bwd_cuda(x, params, do, need_dx=False, **kw)
+    ndx, ndp = PE.patch_encoder_bwd_cuda(x, params, do, need_dx=False, saved=saved, **kw)
     assert ndx is None
     for a, b in zip(ndp, gdp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_kernel_repeats_bit_for_bit(cuda, dtype):
+    """K2 (with its argmaxes) then K7, twice, at [2, 64 * 256, 4] h(128, 512)
+    -> 256: the same bits (fixed summation orders, no atomics)."""
+    x, params, do = pe_bwd_case(np.random.default_rng(77), cuda, dtype, 64, 256, 4, 256)
+    kw = dict(num_groups=64, group_size=256, cdt=dtype)
+    runs = []
+    for _ in range(2):
+        out, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+        runs.append((out, *saved, *PE.patch_encoder_bwd_cuda(x, params, do, saved=saved,
+                                                               need_dx=False, **kw)[1]))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 
@@ -393,7 +514,8 @@ def test_k7_kernel_routes_ties_to_first_row(cuda):
     rng = np.random.default_rng(8)
     x, params, do = pe_bwd_case(rng, cuda, torch.float32, 4, 16, 6, 64, ties=True)
     kw = dict(num_groups=4, group_size=16, cdt=torch.float32, act="erf")
-    gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, **kw)
+    _, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+    gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, saved=saved, **kw)
     wdx, wdp = PE.patch_encoder_bwd_plain(x, params, do, **kw)
     for g_, w_ in zip((gdx, *gdp), (wdx, *wdp)):
         assert_rel(g_, w_, 1e-4)
