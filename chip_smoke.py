@@ -10,7 +10,8 @@ last line):
 2. build: compile the kernels from point_sam_tpu_torch/csrc (one nvcc per
    source, all started together), then print the attention, K2 and K7
    kernels' registers and stack (spill) bytes from ``cuobjdump
-   --dump-resource-usage`` of the built library (reported, not gated);
+   --dump-resource-usage`` of the built library (reported, not gated; K7's
+   three: the pass-C mma kernel, pass D's, and the one-launch kernel);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
    so the decoder tail takes K4): the Predictor on the CPU (plain versions)
    and on the card (kernels), same weights, cloud and 3 clicks;
@@ -63,7 +64,10 @@ last line):
    equal outputs and to a recall >= 0.9 against the exact kNN;
 13. tiny train step in fp32 (the ViT of 3, so K3 and K6 run; G=32, so the
    forward's tail is K11): the CPU with the plain versions against the
-   card with the kernels, same weights, batch and clicks;
+   card with the kernels, same weights, batch and clicks; then the card's
+   step again, every grad bit-equal, and (printed) how many grads differ
+   with the gathers' backward as autograd's own, plainly and under
+   ``torch.use_deterministic_algorithms(True)``;
 14. the training path: ViT-L through ``trainer.main`` with the reference
    recipe (configs/large.yaml on synthetic data: B=2, N=10,000, M=2,
    G=1024, K=256, 5 click iterations, bf16 compute, fp32 AdamW), 5 steps,
@@ -73,16 +77,23 @@ last line):
    argmax outputs (the max-pools' first rows the backward reads): they are
    checked against the plain forward's a2 / a4, on inputs with repeated
    rows (the first copy must win), and timed with and without them; K7 is given K2's saved max-pools from a launch outside its timed
-   calls, and its plain version the same ones. Then K2 -> K7 twice at the
-   train shape must return the same bits;
+   calls, and its plain version the same ones; on its bf16 mma route its
+   pass C alone and passes C and D are timed too (pass D and the reduction
+   by difference). Then K2 -> K7 twice at the train shape must return the
+   same bits;
+15c. K7 at the edges of its bf16 mma route against its plain version, both
+   activations, grids of 160-320 patches: the train widths at K = 256, K =
+   77, the hier level-2 (C_in = 131) and level-1 widths at K = 32,
+   duplicated rows; fp32 on the one-launch route; each launch's route
+   checked; two calls at the train shape -> 512 bit-equal;
 15b. K6 at its edges against its plain version, fp32 and bf16: ragged S
    (77, 200, 2049) at every padded head size (dh 32, 64, 88, 128), dh = 36
    (not a multiple of 8: the bf16 kernels' element-wise loads and stores), a
    grid wider than one wave, large logits at the train shape; two calls at the
    train shape bit-equal; the kernel's and the plain version's error against
    an fp32 reference on the same bf16 inputs, printed;
-16. profiles under torch.profiler (device time by stage): one ViT-L train
-   step, timed on one batch before and after that profiler session, then
+16. profiles under torch.profiler (device time by stage; K7 by kernel:
+   pass C, pass D, the reduction): one ViT-L train step, timed on one batch before and after that profiler session, then
    one encode of each serving path (ViT-L, voronoi EVA-giant, hier at
    both groupings, fused-geometry ViT-L) on its model built anew, then 20
    calls of K6 and 20 of SDPA's backward at the train shape. They come last, after
@@ -421,11 +432,18 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
         print(f"K7 [{B}, {G}*{K}, {cin}] -> {cout}: the max-pool grads reach {rows4} rows "
               f"through arg4 and {rows_any} through arg2 or arg4, of {rows}", flush=True)
         nbytes, flops = pe_bwd_work(B * G, cin, h0, h1, cout, elem, need_dx, rows, rows4, rows_any)
-        return dict(
+        case = dict(
             run=lambda: PE.patch_encoder_bwd_cuda(x, params, dout, need_dx=need_dx, saved=saved,
                                                   **kw),
             plain=lambda: PE.patch_encoder_bwd_plain(x, params, dout, saved=saved, **kw),
             compare=in_norm, work=(nbytes, {kind: flops}))
+        if key["route"] == "mma":  # pass C alone, then C and D, timed apart
+            launch = dict(saved=saved, need_dx=need_dx, **kw)
+            case["passes"] = [
+                lambda: PE._bwd_launch(x, params, dout, passes=PE.BWD_PASS_C, **launch),
+                lambda: PE._bwd_launch(x, params, dout, passes=PE.BWD_PASS_C | PE.BWD_PASS_D,
+                                       **launch)]
+        return case
 
     if name in ("K3", "K6"):
         B, S, D, H = key["B"], key["S"], key["D"], key["heads"]
@@ -586,6 +604,80 @@ def pe_train_repeats(torch, PE) -> None:
           "12 grads bit-equal over two runs", flush=True)
 
 
+def patch_encoder_bwd_edges(torch, PE) -> None:
+    """Phase 15c: K7 (``patch_encoder_bwd_cuda``) at the edges of its bf16
+    mma route against ``patch_encoder_bwd_plain`` given the same K2 rows,
+    both activations, on grids of 160-320 patches (above one wave of 132
+    blocks, so blocks walk two or three patches): the train widths at K = 256
+    (-> 256, -> 512), K = 77 (a ragged last 64-row chunk), the hier level-2
+    (C_in = 131, -> 256 and -> 512) and level-1 (C_in = 4 and 6) widths at
+    K = 32, duplicated input rows (ties in both max-pools). bf16 takes the
+    mma route (the launch counter's route is checked) and is held in norm
+    within 5e-2; fp32 takes the one-launch route, each grad within 1e-4 of
+    its largest plain entry. Then two K7 calls at the train shape [2, 1024 *
+    256, 6] -> 512 in bf16 must return the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale
+
+    # (B, G, K, C_in, h0, h1, C_out, ties)
+    cases = [(2, 80, 256, 4, 128, 512, 256, False), (2, 80, 256, 6, 128, 512, 512, False),
+             (2, 80, 77, 4, 128, 512, 256, False), (2, 96, 32, 131, 128, 256, 256, False),
+             (2, 96, 32, 131, 128, 256, 512, False), (2, 160, 32, 4, 64, 128, 128, False),
+             (2, 160, 32, 6, 64, 128, 128, False), (2, 80, 32, 6, 128, 512, 512, True)]
+    worst = {}
+    for B, G, K, cin, h0, h1, cout, ties in cases:
+        prm = pe_params(randn, cin, h0, h1, cout)
+        x = randn(B, G, K, cin)
+        if ties:
+            x[:, :, 1] = x[:, :, 0]
+            x[:, :, 5] = x[:, :, 3]
+        x = x.reshape(B, G * K, cin)
+        dout = randn(B, G, cout)
+        for dt, route in ((torch.float32, "single"), (torch.bfloat16, "mma")):
+            for act in ("erf", "tanh"):
+                kw = dict(num_groups=G, group_size=K, cdt=dt, act=act)
+                label = (f"edge K7 [B={B}, G={G}, K={K}, C_in={cin}] h({h0}, {h1}) -> {cout}"
+                         f"{' ties' if ties else ''} {act} {dt}")
+                xd, dd = x.to(dt), dout.to(dt)
+                _, saved = PE.patch_encoder_cuda(xd, prm, return_argmax=True, **kw)
+                PE.patch_encoder_bwd_cuda.shapes = {}
+                got = PE.patch_encoder_bwd_cuda(xd, prm, dd, saved=saved, **kw)
+                (launch,) = PE.patch_encoder_bwd_cuda.shapes
+                check(dict(launch)["route"] == route, f"{label}: route {dict(launch)['route']}")
+                want = PE.patch_encoder_bwd_plain(xd, prm, dd, saved=saved, **kw)
+                for i, (a, w) in enumerate(zip((got[0], *got[1]), (want[0], *want[1]))):
+                    check(a.shape == w.shape and bool(torch.isfinite(a).all()),
+                          f"{label} grad {i}: {a.shape}, or not finite")
+                    diff = (a - w).float()
+                    if dt == torch.bfloat16:
+                        share = (diff.norm() / w.float().norm().clamp_min(1e-30)).item() / 5e-2
+                    else:
+                        share = diff.abs().max().item() / (1e-4 * w.float().abs().max().item()
+                                                           + 1e-30)
+                    check(share <= 1.0, f"{label} grad {i}: {share:.3g} of its tolerance")
+                    key = f"{route} {str(dt).rsplit('.', 1)[-1]}"
+                    worst[key] = max(worst.get(key, 0.0), share)
+    torch.cuda.synchronize()
+    print(f"K7 edges: {len(cases)} shapes x 2 dtypes x 2 activations against plain, worst error "
+          f"as a share of its tolerance: " + ", ".join(f"{k} {w:.3g}" for k, w in worst.items()),
+          flush=True)
+
+    prm = pe_params(randn, 6, 128, 512, 512)
+    x = randn(2, 1024 * 256, 6).to(torch.bfloat16)
+    dout = randn(2, 1024, 512).to(torch.bfloat16)
+    kw = dict(num_groups=1024, group_size=256, cdt=torch.bfloat16)
+    _, saved = PE.patch_encoder_cuda(x, prm, return_argmax=True, **kw)
+    runs = [PE.patch_encoder_bwd_cuda(x, prm, dout, saved=saved, need_dx=False, **kw)[1]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "K7 [2, 1024*256, 6] -> 512 bf16: two calls differ")
+    print("K7 [2, 1024*256, 6] h(128, 512) -> 512 bf16 (mma route): 12 grads bit-equal over two "
+          "calls", flush=True)
+
+
 def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
     """Each kernel a path launched, against its plain version at every
     shape and dtype the path gave it: one row per launch key, with the
@@ -608,12 +700,18 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
                        library_ms=time_ms(torch, case["library"]) if "library" in case else None)
             if "without" in case:
                 row["ms_without_argmax"] = time_ms(torch, case["without"])
+            if "passes" in case:  # K7's mma route: C, then D and the reduction by difference
+                c_ms, cd_ms = (time_ms(torch, fn) for fn in case["passes"])
+                row.update(ms_pass_c=c_ms, ms_pass_d=cd_ms - c_ms, ms_reduce=row["ms"] - cd_ms)
             row["bound_ms"], row["bound_by"] = bound(*case["work"])
             del case
             torch.cuda.empty_cache()
             lib = "" if row["library_ms"] is None else f"  library {row['library_ms']:.4f} ms"
             if "ms_without_argmax" in row:
                 lib += f"  without the argmax outputs {row['ms_without_argmax']:.4f} ms"
+            if "ms_pass_c" in row:
+                lib += (f"  pass C {row['ms_pass_c']:.4f} ms, pass D {row['ms_pass_d']:.4f} ms, "
+                        f"reduction and set-up {row['ms_reduce']:.4f} ms")
             print(f"kernel {name} {path} {key}: {row['launches']} launches, max_abs_err "
                   f"{err:.6g}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms{lib}  "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
@@ -783,8 +881,8 @@ def resource_usage(lib) -> None:
     rows = []
     for mangled, reg, stack, local in found:
         m = re.search(r"\d+((?:attn_bwd|mha_kernel)\w*?)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
-        k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd)?_kernel)(?:I(f|13__nv_bfloat16)E)?",
-                       mangled)
+        k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd(?:_c_mma|_d)?)?_kernel)"
+                       r"(?:I(f|13__nv_bfloat16)E)?", mangled)
         if m:
             dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2] or "", "")
             rows.append(f"{m[1]}<{dtype}{m[3]}> {reg} reg, stack {stack} B, local {local} B")
@@ -957,11 +1055,18 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
     batch and clicks. Tolerances: loss 1e-4 relative; each grad 1e-4 of its
     largest entry + 1e-6, the two PointNets' 5e-3 (the card sums in another
     order, and a max-pool near-tie within that fp32 noise moves a column's
-    grad to another row)."""
+    grad to another row). Then the card's step runs again on a fresh copy
+    of the model: every grad must be bit-equal. Last, what broke that before
+    is printed (not gated): how many grads differ between two such steps with
+    the gathers' backward as autograd's own (``index_select``'s:
+    ``index_add_``, atomic adds on the card), plainly and under
+    ``torch.use_deterministic_algorithms(True)`` (or the op that raises)."""
+    import importlib
+    import os
+
     cfg = P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT), tokenizer=P.TokenizerConfig(32, 16),
                            prompt_iters=3, enable_mask_refinement_iterations=False)
     cpu_model = P.PointCloudSAM(cfg, generator=torch.Generator().manual_seed(0))
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
     rng = np.random.default_rng(4)
     B, N, M = 2, 600, 2
     coords = rng.standard_normal((B, N, 3)).astype(np.float32)
@@ -972,9 +1077,10 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
             d = ((coords[b] - coords[b, rng.integers(N)]) ** 2).sum(-1)
             gt[b, m] = d < np.quantile(d, 0.3)
     batch = dict(coords=coords, features=rng.random((B, N, 3)).astype(np.float32), gt_masks=gt)
-    results = []
-    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
-        reset(counters)
+
+    def step(dev):
+        """The step on a fresh copy of the model: (outputs, loss, grads)."""
+        model = copy.deepcopy(cpu_model).to(dev)
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         with torch.no_grad():
             outs = model(tb["coords"], tb["features"], tb["gt_masks"])
@@ -982,9 +1088,17 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
                                 max_grad_value=float("inf"))
         metrics = PS.train_step(model, opt, tb, torch.Generator().manual_seed(0),
                                 criterion=criterion)
-        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
                  if p.grad is not None}
-        results.append((outs, float(metrics["loss"]), grads))
+        return outs, float(metrics["loss"]), grads
+
+    def differ(a, b):
+        return [n for n in a if not torch.equal(a[n], b[n])]
+
+    results = []
+    for dev in ("cpu", "cuda"):
+        reset(counters)
+        results.append(step(dev))
     torch.cuda.synchronize()
     missing = [k for k in ("K1", "K2", "K3", "K6", "K7", "K11") if counters[k].launches == 0]
     check(not missing, f"tiny train step: kernels {missing} did not launch on the card")
@@ -997,12 +1111,40 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
     worst = 0.0
     for n in cg:
         rel = 5e-3 if ".patch_encoder." in n else 1e-4
-        err = (gg[n] - cg[n]).abs().max().item()
+        err = (gg[n].cpu() - cg[n]).abs().max().item()
         scale = cg[n].abs().max().item()
         check(err <= rel * scale + 1e-6, f"tiny train step: grad {n} err {err:.3g} of {scale:.3g}")
         worst = max(worst, err / (rel * scale + 1e-6))
     print(f"train step tiny fp32: card kernels vs CPU plain, loss {gl:.6f} vs {cl:.6f}, "
           f"{len(cg)} grads, worst error {worst:.3g} of its tolerance", flush=True)
+
+    again = differ(gg, step("cuda")[2])
+    check(not again, f"tiny train step: two runs on the card differ in {len(again)} grads, the "
+          f"first {again[0] if again else ''}")
+    group = importlib.import_module("point_sam_tpu_torch.ops.group")
+    port = group._SelectRows.apply
+    group._SelectRows.apply = lambda flat, idx: flat.index_select(0, idx)
+    config = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    try:
+        found = [differ(*(step("cuda")[2] for _ in range(2)))]
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            found.append(differ(*(step("cuda")[2] for _ in range(2))))
+        except RuntimeError as e:
+            found.append(f"raised: {str(e).splitlines()[0][:200]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if config is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = config
+        group._SelectRows.apply = port
+    plain, strict = (f if isinstance(f, str) else f"{len(f)} grads differ"
+                     + (f", the first {f[0]}" if f else "") for f in found)
+    print(f"train step tiny fp32 repeats: {len(gg)} grads bit-equal over two runs on the card; "
+          f"with the gathers' backward as autograd's own (index_add_): {plain}; the same under "
+          f"torch.use_deterministic_algorithms(True): {strict}", flush=True)
 
 
 # Parameters whose gradient may be zero on a step for reasons of the data:
@@ -1014,10 +1156,15 @@ MAY_BE_ZERO = ("mask_decoder.output_hypernetworks_mlps.1.", "mask_decoder.output
 
 MATMULS = ("matmuls (cuBLAS)", ("gemm", "sm90_", "cutlass", "xmma", "nvjet"))
 # Kernel name fragments -> stage, for the profiles (first match wins).
-TRAIN_STAGES = (("K7 patch encoder bwd", ("patch_encoder_bwd", "reduce_slices")),
-                ("K2 patch encoder", ("patch_encoder",)),
-                ("K6 attention bwd, query pass", ("attn_bwd_query",)),
-                ("K6 attention bwd, key pass", ("attn_bwd_key",)),
+K6_STAGES = (("K6 attention bwd, query pass", ("attn_bwd_query",)),
+             ("K6 attention bwd, key pass", ("attn_bwd_key",)))
+# K7 by kernel: pass C on the bf16 mma route, pass D apart, the slices'
+# reduction, and the one-launch kernel of the other shapes.
+TRAIN_STAGES = (("K7 pass C (mma)", ("patch_encoder_bwd_c_mma",)),
+                ("K7 pass D", ("patch_encoder_bwd_d_kernel",)),
+                ("K7 reduce_slices", ("reduce_slices",)),
+                ("K7 one launch", ("patch_encoder_bwd_kernel",)),
+                ("K2 patch encoder", ("patch_encoder",)), *K6_STAGES,
                 ("K3 attention", ("mha_kernel",)), ("K4 / K11 decode tail", ("interp_upscale",)),
                 ("K1 FPS + 3-NN", ("fps_interp",)), MATMULS)
 # fps_interp_kernel<0> is K8, <1> K1, <2> K9 (the template mode of
@@ -1079,7 +1226,7 @@ def profile_attention_bwd(torch, A, calls=20):
     for name, fn in runs.items():
         fn()  # warm
         profile(torch, f"{name} x{calls} [2, 1024, 1024] 16 heads bf16",
-                lambda f=fn: [f() for _ in range(calls)], TRAIN_STAGES[2:4])
+                lambda f=fn: [f() for _ in range(calls)], K6_STAGES)
 
 
 def profile_step(torch, result, cfg, seed):
@@ -1284,6 +1431,7 @@ def main() -> int:
     rows += check_kernels(torch, np, mods, train, "train")
     check({r["kernel"] for r in rows} == set(counters), "a kernel was checked on no path")
     pe_train_repeats(torch, PE)
+    patch_encoder_bwd_edges(torch, PE)
     attention_bwd_edges(torch, A)
 
     train_profile()
@@ -1320,8 +1468,9 @@ def main() -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=r["path"], shape=r["shape"]))
-        if "ms_without_argmax" in r:
-            kernels[-1]["ms_without_argmax"] = r["ms_without_argmax"]
+        for extra in ("ms_without_argmax", "ms_pass_c", "ms_pass_d", "ms_reduce"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 // Warp-tile building blocks over mma.cuh for the PointNet kernels (K2 in
-// patch_encoder.cu): bf16 products whose weights and activations both sit
-// in shared memory, fed to mma.sync.m16n8k16 by ldmatrix, with fp32
-// accumulators in registers and the epilogues applied on the C fragments.
+// patch_encoder.cu, K7's pass C in patch_encoder_bwd.cu): bf16 products
+// whose weights and activations both sit in shared memory, fed to
+// mma.sync.m16n8k16 by ldmatrix, with fp32 accumulators in registers and
+// the epilogues applied on the C fragments.
 //
 // Layouts: every matrix in shared memory is row-major bf16 with rows
 // padded by 8 elements (16 bytes), so the 8 row addresses of one ldmatrix
@@ -51,6 +52,15 @@ __device__ __forceinline__ uint32_t b16_addr(const __nv_bfloat16* B, int ldb, in
   return smem_u32(B + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + n0 + (lane >> 4) * 8);
 }
 
+// The same for the A-fragments (ldmatrix.trans) of the 16 x 16 tile at (m0,
+// k0) of A = S^T, where S is [k][m] in shared memory (lds elements a row),
+// e.g. a weight-gradient product's S^T D over rows k: S's rows k0.., columns
+// m0..; the tile at (m0 + 16 m, k0 + 16 s) is 32 (s lds + m) bytes further.
+__device__ __forceinline__ uint32_t at16_addr(const __nv_bfloat16* S, int lds, int k0, int m0) {
+  const int lane = threadIdx.x & 31;
+  return smem_u32(S + (k0 + (lane & 7) + (lane >> 4) * 8) * lds + m0 + ((lane >> 3) & 1) * 8);
+}
+
 template <int MT, int NT>
 __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
 #pragma unroll
@@ -80,6 +90,39 @@ __device__ __forceinline__ void mma_smem(float (&acc)[MT][NT][4], const __nv_bfl
         uint32_t a[MT][4];
 #pragma unroll
         for (int m = 0; m < MT; ++m) ldmatrix_x4(a[m], a0 + 32 * (m * lda + ks));
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          if (jp < np) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, b0 + 32 * (ks * ldb + jp));
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              mma_bf16(acc[m][2 * jp], a[m], b[0], b[1]);
+              mma_bf16(acc[m][2 * jp + 1], a[m], b[2], b[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// acc += S[sk0 + 16 nk, sm0 + 16 MT]^T B[kb + 16 nk, bn0 + 16 np], both in
+// shared memory (S [k][m] row-major, its A-fragments by ldmatrix.trans);
+// otherwise as mma_smem.
+template <int KU, int MT, int NT>
+__device__ __forceinline__ void mma_smem_tn(float (&acc)[MT][NT][4], const __nv_bfloat16* S,
+                                            int lds, int sk0, int sm0, const __nv_bfloat16* B,
+                                            int ldb, int kb, int bn0, int nk, int np) {
+  const uint32_t a0 = at16_addr(S, lds, sk0, sm0), b0 = b16_addr(B, ldb, kb, bn0);
+  for (int k0 = 0; k0 < nk; k0 += KU) {
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      const int ks = k0 + u;
+      if (ks < nk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) ldmatrix_x4_trans(a[m], a0 + 32 * (ks * lds + m));
 #pragma unroll
         for (int jp = 0; jp < NT / 2; ++jp) {
           if (jp < np) {

@@ -28,35 +28,46 @@
 //
 // What bounds it on the H100: like K2, the [G*K, 512] hidden activations
 // (0.5-1 GB per tensor at the train shapes) must not go through device
-// memory, so they are recomputed per 16-row tile. The one exception is the
+// memory, so they are recomputed on chip. The one exception is the
 // stage-1 output gradient da2 (fp32 [rows, h0], 0.27-0.54 GB at the train
 // shapes): it needs the whole patch's sum of da3 before it is complete, so
 // it goes to a workspace and is read back once.
 // Design: on the TPU the parameter grads add up over a sequential grid;
-// here blocks run in no order. So the kernel runs one persistent block per
+// here blocks run in no order. So each pass runs one persistent block per
 // SM; block s walks the patches s, s + nblocks, ... in order and adds its
 // parameter grads into its own fp32 workspace slice (no other block writes
-// it), and a second launch adds the slices in slice order. No atomics: the
-// grads are the same from run to run.
-// Products: in bf16 with widths that are multiples of 16, every product
-// with a wide operand runs on the tensor cores (WMMA 16x16x16, fp32
-// accumulation): its operands are rounded to bf16 anyway, so bf16 copies
-// of them in shared memory make the products exact up to summation order.
-// The 16-row tile is one WMMA row tile; a warp owns 16-column output tiles
-// and reads its weight fragments from L2. The weight-gradient products
-// (a^T b over the tile's rows) add their 16x16 tiles straight into the
-// block's workspace slice. The narrow products (C_in columns), the sparse
-// max-pool ones and the fp32 path run as FMA loops.
+// it), and a last launch adds the slices in slice order. No atomics on
+// floats: the grads are the same from run to run.
 // Per patch, two passes over its rows:
 //   C: stage 1 + stage-2 up to GELU -> the stage-2 backward, da2's
 //      pointwise part to the workspace; then the pooled branch;
 //   D: stage 1 without its second Dense -> the stage-1 backward, dx.
+// Two routes:
+// - bf16 with h0 <= 128 and h0, h1, C_out multiples of 16 (K2's mma gate),
+//   where the pass-C kernel's shared memory fits (K <= 256 at h(128, 512)):
+//   pass C on patch_encoder_bwd_c_mma_kernel (mma.sync.m16n8k16 on 64-row
+//   chunks, K2's stage 1 once per patch and cp.async weight ring; see the
+//   kernel's comment), then pass D on patch_encoder_bwd_d_kernel, a launch
+//   of its own over the same patches in the same order, then the reduction.
+//   Pass C is 82% of the work of the one-launch kernel at the train shapes.
+// - otherwise (fp32, other widths, longer patches): both passes per patch
+//   in patch_encoder_bwd_kernel. Products: in bf16 with widths that are
+//   multiples of 16, every product with a wide operand runs on the tensor
+//   cores (WMMA 16x16x16, fp32 accumulation): its operands are rounded to
+//   bf16 anyway, so bf16 copies of them in shared memory make the products
+//   exact up to summation order. The 16-row tile is one WMMA row tile; a
+//   warp owns 16-column output tiles and reads its weight fragments from
+//   L2. The weight-gradient products (a^T b over the tile's rows) add their
+//   16x16 tiles straight into the block's workspace slice. The narrow
+//   products (C_in columns), the sparse max-pool ones and the fp32 path run
+//   as FMA loops. Pass D of the bf16 route is this kernel's pass D.
 #include <mma.h>
 
 #include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -375,18 +386,55 @@ __device__ void stage2_act(const Params<T>& p, float* sm, const Layout& L, const
   __syncthreads();
 }
 
+// Per patch: K2's max-pools and argmaxes, dout, up_pool = pool @ w2a[:h0],
+// the columns in order of their argmax row, and d3 = 0.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) patch_encoder_bwd_kernel(Params<T> p) {
+__device__ __forceinline__ void load_patch(const Params<T>& p, int pi, float* sm, const Layout& L) {
   using namespace psam;
-  extern __shared__ __align__(128) float sm[];
-  const Layout L(p.cin, p.h0, p.h1, p.cout, p.K);
-  const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
-  const int h0 = p.h0, h1 = p.h1, cout = p.cout, K = p.K, ldt = L.ldt;
+  const int h0 = p.h0, h1 = p.h1, cout = p.cout, K = p.K;
+  float* pool = sm + L.pool;
+  int* arg2 = reinterpret_cast<int*>(sm + L.arg2);
+  int* arg4 = reinterpret_cast<int*>(sm + L.arg4);
+  int* cstart = reinterpret_cast<int*>(sm + L.cstart);
+  int* corder = reinterpret_cast<int*>(sm + L.corder);
+  for (int i = threadIdx.x; i < h0; i += blockDim.x) {
+    pool[i] = to_f32<T>(p.pool[(size_t)pi * h0 + i]);
+    arg2[i] = p.arg2[(size_t)pi * h0 + i];
+  }
+  for (int c = threadIdx.x; c < cout; c += blockDim.x) {
+    arg4[c] = p.arg4[(size_t)pi * cout + c];
+    sm[L.dov + c] = to_f32<T>(p.dout[(size_t)pi * cout + c]);
+  }
+  for (int j = threadIdx.x; j < h1; j += blockDim.x) sm[L.d3 + j] = 0.0f;
+  __syncthreads();
+  rows_matmul<T, 1>(pool, h0, h0, p.w2a, h1, sm + L.up_pool, h1);
+  __syncthreads();
+
+  // The columns in order of their argmax row (and of c within a row), so
+  // that a tile visits only its own columns. One thread: the order, and so
+  // every sum below, is the same from run to run.
+  if (threadIdx.x == 0) {
+    for (int r = 0; r <= K; ++r) cstart[r] = 0;
+    for (int c = 0; c < cout; ++c) ++cstart[arg4[c] + 1];
+    for (int r = 0; r < K; ++r) cstart[r + 1] += cstart[r];
+    for (int c = 0; c < cout; ++c) corder[cstart[arg4[c]]++] = c;
+    for (int r = K; r > 0; --r) cstart[r] = cstart[r - 1];
+    cstart[0] = 0;
+  }
+  __syncthreads();
+}
+
+// Pass C on patch pi (after load_patch): the stage-2 backward, da2's
+// pointwise part to the workspace, then the pooled branch.
+template <typename T>
+__device__ __forceinline__ void pass_c(const Params<T>& p, int pi, float* sm, const Layout& L,
+                                       const GradOffsets& O, float* work) {
+  using namespace psam;
+  const int h0 = p.h0, h1 = p.h1, K = p.K, ldt = L.ldt;
   const bool tanh_act = p.tanh_act != 0, tc = p.tc != 0;
-  float* work = p.work + (size_t)blockIdx.x * O.total;
+  const T* xpatch = p.x + (size_t)pi * K * p.cin;
+  float* da2 = p.da2 + (size_t)pi * K * h0;
   bf16* a2b = reinterpret_cast<bf16*>(sm + L.a2b);
-  bf16* g1b = reinterpret_cast<bf16*>(sm + L.g1b);
-  bf16* d2b = reinterpret_cast<bf16*>(sm + L.d2b);
   bf16* d3b = reinterpret_cast<bf16*>(sm + L.d3b);
   float* pool = sm + L.pool;
   int* arg2 = reinterpret_cast<int*>(sm + L.arg2);
@@ -396,173 +444,848 @@ __global__ void __launch_bounds__(kThreads) patch_encoder_bwd_kernel(Params<T> p
   int* corder = reinterpret_cast<int*>(sm + L.corder);
   float* d3 = sm + L.d3;
   float* t3 = sm + L.t3;
-
-  for (int e = threadIdx.x; e < 4 * pad8(h0) + 3 * pad8(h1) + pad8(cout); e += blockDim.x)
-    sm[L.vb1a + e] = 0.0f;  // the block's vector-grad sums (vb1a .. vb2b)
-
-  for (int pi = blockIdx.x; pi < p.npatch; pi += gridDim.x) {
-    const T* xpatch = p.x + (size_t)pi * K * p.cin;
-    float* da2 = p.da2 + (size_t)pi * K * h0;
-    // The max-pools and their first argmaxes, as K2's forward found them.
-    for (int i = threadIdx.x; i < h0; i += blockDim.x) {
-      pool[i] = to_f32<T>(p.pool[(size_t)pi * h0 + i]);
-      arg2[i] = p.arg2[(size_t)pi * h0 + i];
-    }
-    for (int c = threadIdx.x; c < cout; c += blockDim.x) {
-      arg4[c] = p.arg4[(size_t)pi * cout + c];
-      dov[c] = to_f32<T>(p.dout[(size_t)pi * cout + c]);
-    }
-    for (int j = threadIdx.x; j < h1; j += blockDim.x) d3[j] = 0.0f;
+  for (int r0 = 0; r0 < K; r0 += kRows) {
+    const int nr = min(kRows, K - r0);
+    const int slot = (r0 / kRows) & 1;  // this tile's half of a2b / d3b
+    bf16* a2s = a2b + slot * kRows * L.ldb0;
+    bf16* d3s = d3b + slot * kRows * L.ldb1;
+    stage1<T>(p, xpatch, r0, nr, sm, L, true, a2s);
+    stage2_act<T>(p, sm, L, a2s);
+    // dg3[r] = sum over the columns c whose max is row r of dout_c w2b[:, c];
+    // dw2b[:, c] += g3[r] dout_c (the slice holds dw2b^T). Loads are issued
+    // several at a time, ahead of their uses.
+    const int c0 = cstart[r0], ncols = cstart[r0 + nr] - c0;
+    for (int e = threadIdx.x; e < kRows * h1; e += blockDim.x) t3[(e / h1) * ldt + e % h1] = 0.0f;
     __syncthreads();
-    rows_matmul<T, 1>(pool, h0, h0, p.w2a, h1, sm + L.up_pool, h1);
-    __syncthreads();
-
-    // The columns in order of their argmax row (and of c within a row), so
-    // that a tile visits only its own columns. One thread: the order, and so
-    // every sum below, is the same from run to run.
-    if (threadIdx.x == 0) {
-      for (int r = 0; r <= K; ++r) cstart[r] = 0;
-      for (int c = 0; c < cout; ++c) ++cstart[arg4[c] + 1];
-      for (int r = 0; r < K; ++r) cstart[r + 1] += cstart[r];
-      for (int c = 0; c < cout; ++c) corder[cstart[arg4[c]]++] = c;
-      for (int r = K; r > 0; --r) cstart[r] = cstart[r - 1];
-      cstart[0] = 0;
-    }
-    __syncthreads();
-
-    // Pass C: the stage-2 backward.
-    for (int r0 = 0; r0 < K; r0 += kRows) {
-      const int nr = min(kRows, K - r0);
-      const int slot = (r0 / kRows) & 1;  // this tile's half of a2b / d3b
-      bf16* a2s = a2b + slot * kRows * L.ldb0;
-      bf16* d3s = d3b + slot * kRows * L.ldb1;
-      stage1<T>(p, xpatch, r0, nr, sm, L, true, a2s);
-      stage2_act<T>(p, sm, L, a2s);
-      // dg3[r] = sum over the columns c whose max is row r of dout_c w2b[:, c];
-      // dw2b[:, c] += g3[r] dout_c (the slice holds dw2b^T). Loads are issued
-      // several at a time, ahead of their uses.
-      const int c0 = cstart[r0], ncols = cstart[r0 + nr] - c0;
-      for (int e = threadIdx.x; e < kRows * h1; e += blockDim.x) t3[(e / h1) * ldt + e % h1] = 0.0f;
-      __syncthreads();
-      for (int j = threadIdx.x; j < h1; j += blockDim.x)
-        for (int q0 = 0; q0 < ncols; q0 += 4) {
-          float w[4];
+    for (int j = threadIdx.x; j < h1; j += blockDim.x)
+      for (int q0 = 0; q0 < ncols; q0 += 4) {
+        float w[4];
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            w[u] = q0 + u < ncols ? to_f32<T>(p.w2bT[(size_t)corder[c0 + q0 + u] * h1 + j]) : 0.0f;
+        for (int u = 0; u < 4; ++u)
+          w[u] = q0 + u < ncols ? to_f32<T>(p.w2bT[(size_t)corder[c0 + q0 + u] * h1 + j]) : 0.0f;
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (q0 + u >= ncols) break;
-            const int c = corder[c0 + q0 + u];
-            float* d = t3 + (arg4[c] - r0) * ldt + j;
-            *d = fmaf(round_to<T>(dov[c]), w[u], *d);
-          }
-        }
-      for (int e0 = threadIdx.x; e0 < ncols * h1; e0 += 8 * blockDim.x) {
-        float v[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int e = e0 + u * blockDim.x;
-          v[u] = e < ncols * h1 ? work[O.w2b + (size_t)corder[c0 + e / h1] * h1 + e % h1] : 0.0f;
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int e = e0 + u * blockDim.x;
-          if (e >= ncols * h1) break;
-          const int c = corder[c0 + e / h1], j = e % h1;
-          work[O.w2b + (size_t)c * h1 + j] =
-              v[u] + sm[L.g3 + (arg4[c] - r0) * h1 + j] * round_to<T>(dov[c]);
+        for (int u = 0; u < 4; ++u) {
+          if (q0 + u >= ncols) break;
+          const int c = corder[c0 + q0 + u];
+          float* d = t3 + (arg4[c] - r0) * ldt + j;
+          *d = fmaf(round_to<T>(dov[c]), w[u], *d);
         }
       }
-      __syncthreads();
-      mul_act_grad(t3, ldt, sm + L.a3, h1, kRows, h1, sm + L.m3, sm + L.inv3, p.s2, p.t2,
-                   tanh_act);
-      __syncthreads();
-      ln_bwd_rows(t3, ldt, sm + L.a3, h1, kRows, nr, h1, sm + L.m3, sm + L.inv3, p.s2,
-                  sm + L.vs2, sm + L.vt2);
-      __syncthreads();
-      col_sum(t3, ldt, nr, h1, d3);  // sum_K da3 (fp32), also db2a
-      __syncthreads();
-      round_rows<T>(t3, ldt, kRows, h1, tc ? d3s : nullptr, L.ldb1);  // da3
-      __syncthreads();
-      float* dw2x = work + O.w2a + (size_t)h0 * h1;
-      if (!tc)
-        tn_accum(sm + L.a2, h0, h0, t3, ldt, h1, nr, dw2x);
-      else if (slot == 1 || r0 + kRows >= K)  // both slots, or the last tile
-        tc_tn_accum(a2b, L.ldb0, h0, d3b, L.ldb1, h1, slot + 1, dw2x);
-      // da2's pointwise part da3 @ w2x^T, to the workspace.
-      mm16<T>(tc, t3, ldt, d3s, L.ldb1, h1, p.w2xT, h0, sm + L.a1, h0);
-      __syncthreads();
-      for (int e = threadIdx.x; e < nr * h0; e += blockDim.x)
-        da2[(size_t)r0 * h0 + e] = sm[L.a1 + e];
-      __syncthreads();
-    }
-    // The pooled branch: d3c = round(sum_K da3); dw2a[:h0] += pool^T d3c;
-    // dpool = d3c @ w2p^T goes to the first maximal row of each column.
-    for (int j = threadIdx.x; j < h1; j += blockDim.x) {
-      sm[L.vb2a + j] += d3[j];
-      d3[j] = round_to<T>(d3[j]);
-    }
-    for (int c = threadIdx.x; c < cout; c += blockDim.x) sm[L.vb2b + c] += dov[c];
-    __syncthreads();
-    for (int e = threadIdx.x; e < h0 * h1; e += blockDim.x)
-      work[O.w2a + e] += pool[e / h1] * d3[e % h1];
-    rows_matmul<T, 1>(d3, h1, h1, p.w2pT, h0, sm + L.dpool, h0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < h0; i += blockDim.x)
-      da2[(size_t)arg2[i] * h0 + i] += sm[L.dpool + i];
-    __syncthreads();
-
-    // Pass D: the stage-1 backward.
-    for (int r0 = 0; r0 < K; r0 += kRows) {
-      const int nr = min(kRows, K - r0);
-      stage1<T>(p, xpatch, r0, nr, sm, L, false, a2b);
-      float* d2 = sm + L.a2;
-      for (int e = threadIdx.x; e < kRows * h0; e += blockDim.x)
-        d2[e] = e < nr * h0 ? da2[(size_t)r0 * h0 + e] : 0.0f;
-      __syncthreads();
-      col_sum(d2, h0, nr, h0, sm + L.vb1b);
-      __syncthreads();
-      round_rows<T>(d2, h0, kRows, h0, tc ? d2b : nullptr, L.ldb0);  // da2c
-      __syncthreads();
-      tn16(tc, sm + L.g1, h0, g1b, L.ldb0, h0, d2, h0, d2b, L.ldb0, h0, nr, work + O.w1b);
-      mm16<T>(tc, d2, h0, d2b, L.ldb0, h0, p.w1bT, h0, t3, ldt);  // dg1
-      __syncthreads();
-      mul_act_grad(t3, ldt, sm + L.a1, h0, kRows, h0, sm + L.m1, sm + L.inv1, p.s1, p.t1,
-                   tanh_act);
-      __syncthreads();
-      ln_bwd_rows(t3, ldt, sm + L.a1, h0, kRows, nr, h0, sm + L.m1, sm + L.inv1, p.s1,
-                  sm + L.vs1, sm + L.vt1);
-      __syncthreads();
-      col_sum(t3, ldt, nr, h0, sm + L.vb1a);
-      __syncthreads();
-      round_rows<T>(t3, ldt, kRows, h0, nullptr, 0);  // da1
-      __syncthreads();
-      tn_accum(sm + L.xs, L.ldx, p.cin, t3, ldt, h0, nr, work + O.w1a);
-      if (p.dx) {
-        rows_matmul<T, kRows>(t3, ldt, h0, p.w1aT, p.cin, sm + L.g1, p.cin);
-        __syncthreads();
-        T* dxp = p.dx + (size_t)pi * K * p.cin;
-        for (int e = threadIdx.x; e < nr * p.cin; e += blockDim.x)
-          dxp[(size_t)r0 * p.cin + e] = from_f32<T>(sm[L.g1 + e]);
+    for (int e0 = threadIdx.x; e0 < ncols * h1; e0 += 8 * blockDim.x) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * blockDim.x;
+        v[u] = e < ncols * h1 ? work[O.w2b + (size_t)corder[c0 + e / h1] * h1 + e % h1] : 0.0f;
       }
-      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * blockDim.x;
+        if (e >= ncols * h1) break;
+        const int c = corder[c0 + e / h1], j = e % h1;
+        work[O.w2b + (size_t)c * h1 + j] =
+            v[u] + sm[L.g3 + (arg4[c] - r0) * h1 + j] * round_to<T>(dov[c]);
+      }
     }
+    __syncthreads();
+    mul_act_grad(t3, ldt, sm + L.a3, h1, kRows, h1, sm + L.m3, sm + L.inv3, p.s2, p.t2,
+                 tanh_act);
+    __syncthreads();
+    ln_bwd_rows(t3, ldt, sm + L.a3, h1, kRows, nr, h1, sm + L.m3, sm + L.inv3, p.s2,
+                sm + L.vs2, sm + L.vt2);
+    __syncthreads();
+    col_sum(t3, ldt, nr, h1, d3);  // sum_K da3 (fp32), also db2a
+    __syncthreads();
+    round_rows<T>(t3, ldt, kRows, h1, tc ? d3s : nullptr, L.ldb1);  // da3
+    __syncthreads();
+    float* dw2x = work + O.w2a + (size_t)h0 * h1;
+    if (!tc)
+      tn_accum(sm + L.a2, h0, h0, t3, ldt, h1, nr, dw2x);
+    else if (slot == 1 || r0 + kRows >= K)  // both slots, or the last tile
+      tc_tn_accum(a2b, L.ldb0, h0, d3b, L.ldb1, h1, slot + 1, dw2x);
+    // da2's pointwise part da3 @ w2x^T, to the workspace.
+    mm16<T>(tc, t3, ldt, d3s, L.ldb1, h1, p.w2xT, h0, sm + L.a1, h0);
+    __syncthreads();
+    for (int e = threadIdx.x; e < nr * h0; e += blockDim.x)
+      da2[(size_t)r0 * h0 + e] = sm[L.a1 + e];
+    __syncthreads();
   }
-  // The block's vector sums into its slice.
+  // The pooled branch: d3c = round(sum_K da3); dw2a[:h0] += pool^T d3c;
+  // dpool = d3c @ w2p^T goes to the first maximal row of each column.
+  for (int j = threadIdx.x; j < h1; j += blockDim.x) {
+    sm[L.vb2a + j] += d3[j];
+    d3[j] = round_to<T>(d3[j]);
+  }
+  for (int c = threadIdx.x; c < p.cout; c += blockDim.x) sm[L.vb2b + c] += dov[c];
   __syncthreads();
-  for (int i = threadIdx.x; i < h0; i += blockDim.x) {
-    work[O.b1a + i] += sm[L.vb1a + i];
-    work[O.s1 + i] += sm[L.vs1 + i];
-    work[O.t1 + i] += sm[L.vt1 + i];
-    work[O.b1b + i] += sm[L.vb1b + i];
+  for (int e = threadIdx.x; e < h0 * h1; e += blockDim.x)
+    work[O.w2a + e] += pool[e / h1] * d3[e % h1];
+  rows_matmul<T, 1>(d3, h1, h1, p.w2pT, h0, sm + L.dpool, h0);
+  __syncthreads();
+  for (int i = threadIdx.x; i < h0; i += blockDim.x)
+    da2[(size_t)arg2[i] * h0 + i] += sm[L.dpool + i];
+  __syncthreads();
+}
+
+// Pass D on patch pi, from the finished da2: the stage-1 backward, dx.
+template <typename T>
+__device__ __forceinline__ void pass_d(const Params<T>& p, int pi, float* sm, const Layout& L,
+                                       const GradOffsets& O, float* work) {
+  using namespace psam;
+  const int h0 = p.h0, K = p.K, ldt = L.ldt;
+  const bool tanh_act = p.tanh_act != 0, tc = p.tc != 0;
+  const T* xpatch = p.x + (size_t)pi * K * p.cin;
+  const float* da2 = p.da2 + (size_t)pi * K * h0;
+  bf16* a2b = reinterpret_cast<bf16*>(sm + L.a2b);
+  bf16* g1b = reinterpret_cast<bf16*>(sm + L.g1b);
+  bf16* d2b = reinterpret_cast<bf16*>(sm + L.d2b);
+  float* t3 = sm + L.t3;
+  for (int r0 = 0; r0 < K; r0 += kRows) {
+    const int nr = min(kRows, K - r0);
+    stage1<T>(p, xpatch, r0, nr, sm, L, false, a2b);
+    float* d2 = sm + L.a2;
+    for (int e = threadIdx.x; e < kRows * h0; e += blockDim.x)
+      d2[e] = e < nr * h0 ? da2[(size_t)r0 * h0 + e] : 0.0f;
+    __syncthreads();
+    col_sum(d2, h0, nr, h0, sm + L.vb1b);
+    __syncthreads();
+    round_rows<T>(d2, h0, kRows, h0, tc ? d2b : nullptr, L.ldb0);  // da2c
+    __syncthreads();
+    tn16(tc, sm + L.g1, h0, g1b, L.ldb0, h0, d2, h0, d2b, L.ldb0, h0, nr, work + O.w1b);
+    mm16<T>(tc, d2, h0, d2b, L.ldb0, h0, p.w1bT, h0, t3, ldt);  // dg1
+    __syncthreads();
+    mul_act_grad(t3, ldt, sm + L.a1, h0, kRows, h0, sm + L.m1, sm + L.inv1, p.s1, p.t1,
+                 tanh_act);
+    __syncthreads();
+    ln_bwd_rows(t3, ldt, sm + L.a1, h0, kRows, nr, h0, sm + L.m1, sm + L.inv1, p.s1,
+                sm + L.vs1, sm + L.vt1);
+    __syncthreads();
+    col_sum(t3, ldt, nr, h0, sm + L.vb1a);
+    __syncthreads();
+    round_rows<T>(t3, ldt, kRows, h0, nullptr, 0);  // da1
+    __syncthreads();
+    tn_accum(sm + L.xs, L.ldx, p.cin, t3, ldt, h0, nr, work + O.w1a);
+    if (p.dx) {
+      rows_matmul<T, kRows>(t3, ldt, h0, p.w1aT, p.cin, sm + L.g1, p.cin);
+      __syncthreads();
+      T* dxp = p.dx + (size_t)pi * K * p.cin;
+      for (int e = threadIdx.x; e < nr * p.cin; e += blockDim.x)
+        dxp[(size_t)r0 * p.cin + e] = from_f32<T>(sm[L.g1 + e]);
+    }
+    __syncthreads();
   }
+}
+
+// The block's vector-grad sums (vb1a .. vb2b) into its slice: stage 1's
+// (b1a, s1, t1, b1b) and / or stage 2's (b2a, s2, t2, b2b).
+__device__ __forceinline__ void add_vector_sums(float* work, const GradOffsets& O,
+                                                const float* sm, const Layout& L, int h0, int h1,
+                                                int cout, bool stage1, bool stage2) {
+  __syncthreads();
+  if (stage1)
+    for (int i = threadIdx.x; i < h0; i += blockDim.x) {
+      work[O.b1a + i] += sm[L.vb1a + i];
+      work[O.s1 + i] += sm[L.vs1 + i];
+      work[O.t1 + i] += sm[L.vt1 + i];
+      work[O.b1b + i] += sm[L.vb1b + i];
+    }
+  if (!stage2) return;
   for (int j = threadIdx.x; j < h1; j += blockDim.x) {
     work[O.b2a + j] += sm[L.vb2a + j];
     work[O.s2 + j] += sm[L.vs2 + j];
     work[O.t2 + j] += sm[L.vt2 + j];
   }
   for (int c = threadIdx.x; c < cout; c += blockDim.x) work[O.b2b + c] += sm[L.vb2b + c];
+}
+
+// Passes C and D per patch in one launch (fp32, and bf16 outside the mma
+// route's gate).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) patch_encoder_bwd_kernel(Params<T> p) {
+  extern __shared__ __align__(128) float sm[];
+  const Layout L(p.cin, p.h0, p.h1, p.cout, p.K);
+  const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
+  float* work = p.work + (size_t)blockIdx.x * O.total;
+  for (int e = threadIdx.x; e < 4 * pad8(p.h0) + 3 * pad8(p.h1) + pad8(p.cout); e += blockDim.x)
+    sm[L.vb1a + e] = 0.0f;  // the block's vector-grad sums (vb1a .. vb2b)
+  for (int pi = blockIdx.x; pi < p.npatch; pi += gridDim.x) {
+    load_patch<T>(p, pi, sm, L);
+    pass_c<T>(p, pi, sm, L, O, work);
+    pass_d<T>(p, pi, sm, L, O, work);
+  }
+  add_vector_sums(work, O, sm, L, p.h0, p.h1, p.cout, true, true);
+}
+
+// Pass D alone, after patch_encoder_bwd_c_mma_kernel has written da2: the
+// same blocks walk the same patches in the same order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) patch_encoder_bwd_d_kernel(Params<T> p) {
+  extern __shared__ __align__(128) float sm[];
+  const Layout L(p.cin, p.h0, p.h1, p.cout, p.K);
+  const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
+  float* work = p.work + (size_t)blockIdx.x * O.total;
+  for (int e = threadIdx.x; e < 4 * pad8(p.h0); e += blockDim.x)
+    sm[L.vb1a + e] = 0.0f;  // stage 1's vector-grad sums (vb1a .. vb1b)
+  for (int pi = blockIdx.x; pi < p.npatch; pi += gridDim.x) pass_d<T>(p, pi, sm, L, O, work);
+  add_vector_sums(work, O, sm, L, p.h0, p.h1, p.cout, true, false);
+}
+
+// ------------------------------------------------- bf16 pass C on mma.sync
+constexpr int kMmaWarps = 16;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kChunk = 64;   // rows a chunk: 2 row groups of 32
+constexpr int kSlabK = 64;   // weight rows a slab: four k16 steps
+constexpr int kSlabN = 256;  // columns a slice
+constexpr int kGroupN = kSlabN / (kMmaWarps / 2);  // a warp's columns of a slice
+constexpr int kNt2 = kGroupN / 8;                  // its n8 tiles
+constexpr int kLdSlab = kSlabN + 8;
+constexpr int kStages = 2;   // slabs in the ring
+constexpr int kNt1 = 16;     // n8 tiles of a stage-1 row (h0 <= 128)
+constexpr int kHalf = psam::kMaxPerLane / 2;  // a lane's columns of half a row (h1 <= 512)
+
+__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+// Shared-memory layout of the pass-C kernel in bytes, every buffer 128-byte
+// aligned. Stage 1's weights and input tiles, the chunk buffer and the
+// patch's cross-warp sums share their bytes (region "R").
+struct CLayout {
+  int kp, cinp, xslots, mwords;
+  int a2, w1a, w1b, xw, ch, red, d3c, ring, up, vec, mask, pool, arg2, arg4, dov, xch, total;
+  __host__ __device__ CLayout(int K, int cin, int h0, int h1, int cout) {
+    kp = round_up(K, kChunk);
+    cinp = round_up(cin, 16);
+    const int cap = 20480 / (32 * (cinp + 8));  // <= 20 KB of input tiles, as K2
+    xslots = imin(imin(kMmaWarps, kp / 16), cap > 1 ? cap : 1);
+    mwords = (cout + 31) / 32;
+    int off = 0;
+    auto take = [&](int bytes) {
+      const int at = off;
+      off += (bytes + 127) & ~127;
+      return at;
+    };
+    auto later = [](int a, int b) { return a > b ? a : b; };
+    a2 = take(kp * (h0 + 8) * 2);
+    const int shared_at = off;
+    w1a = take(cinp * (h0 + 8) * 2);
+    w1b = take(h0 * (h0 + 8) * 2);
+    xw = take(xslots * 16 * (cinp + 8) * 2);
+    int end = off;
+    off = shared_at;
+    ch = take(kChunk * (h1 + 8) * 2);
+    end = later(end, off);
+    off = shared_at;
+    red = take((kMmaWarps / 2) * h1 * 4);
+    d3c = take(h1 * 4);
+    off = later(end, off);
+    ring = take(kStages * kSlabK * kLdSlab * 2);
+    up = take(h1 * 4);
+    vec = take((4 * h0 + 3 * h1) * 4);
+    mask = take(kChunk * mwords * 4);
+    pool = take(h0 * 4);
+    arg2 = take(h0 * 4);
+    arg4 = take(cout * 4);
+    dov = take(cout * 4);
+    xch = take(kMmaWarps * 4 * 4);
+    total = off;
+  }
+};
+
+// The sum of v over the two warps of a row-epilogue pair (warps 2 q, 2 q
+// + 1, pair barrier ``bar``), the same bits in both: each warp's warp_sum
+// goes to its half of slot ``s`` of the pair's exchange words, the pair
+// syncs, both add half 0's and half 1's. A slot is written again only after
+// two more of the pair's syncs, when the partner has read it.
+__device__ __forceinline__ float pair_sum(float v, float* xch, int s, int half, int bar) {
+  float* const slot = xch + (bar - 1) * 8 + s;
+  v = psam::warp_sum(v);
+  if ((threadIdx.x & 31) == 0) slot[4 * half] = v;
+  asm volatile("bar.sync %0, 64;\n" ::"r"(bar) : "memory");
+  return slot[0] + slot[4];
+}
+
+// pair_sum of two values at once (slots 2 and 3).
+__device__ __forceinline__ float2 pair_sum2(float a, float b, float* xch, int half, int bar) {
+  float* const slot = xch + (bar - 1) * 8 + 2;
+  a = psam::warp_sum(a);
+  b = psam::warp_sum(b);
+  if ((threadIdx.x & 31) == 0) {
+    slot[4 * half] = a;
+    slot[4 * half + 1] = b;
+  }
+  asm volatile("bar.sync %0, 64;\n" ::"r"(bar) : "memory");
+  return make_float2(slot[0] + slot[4], slot[1] + slot[5]);
+}
+
+// Column pairs (n16) of a warp's column group starting at wc below n.
+__device__ __forceinline__ int group_pairs(int n, int wc) {
+  return min(kNt2 / 2, max(0, (n - wc) / 16));
+}
+
+// Pass C (and the pooled branch) in bf16 on mma.sync.m16n8k16, one
+// persistent block of 16 warps per SM walking the patches s, s + nblocks,
+// ... in order (as patch_encoder_bwd_kernel), per patch:
+//  - up_pool = pool @ w2a[:h0] (one FMA column a thread), then stage 1 once
+//    for the whole patch as K2 computes it (a warp per 16-row tile, LN ->
+//    GELU on the fragments, packed C-to-A into the second Dense) into the
+//    resident bf16 a2 [K, h0] (exact: the reference rounds it to bf16), with
+//    the backward's activation (the LN affine in fp32, as the reference's
+//    _bwd_kernel recomputes it);
+//  - per 64-row chunk (two row groups of 32):
+//    a3 = round(round(a2 w2x + up_pool) + round(b2a)) from slabs of w2x
+//      through the ring; the epilogue on the fragments writes a3 in bf16
+//      (exact) to the chunk buffer. Warp (rg, cg) owns rows 32 rg.. and
+//      columns 32 cg.. of each 256-column slice;
+//    the row epilogue, two warps per row (each half of its columns, a lane
+//      holding 8 of them in registers; the row sums add the two warps' warp
+//      sums through shared memory under a barrier of the pair): LN
+//      statistics (fp32, two-pass); at the row's argmax columns (a bit mask
+//      per row, built per chunk by integer atomicOr, walked in increasing c:
+//      the old kernel's corder order) g3 for dw2b^T += g3 dout_c (each
+//      (c, j) by one thread once a patch) and dg3 = sum_c dout_c w2b[:, c];
+//      GELU', the LN backward, da3 rounded to bf16 in place of a3. The
+//      column sums ds2, dt2 and sum_K da3 stay per warp and lane in
+//      registers and go through shared memory once per patch (sum_K da3) or
+//      per block (ds2, dt2), added over the pairs in pair order;
+//    dw2x += a2^T da3 over the chunk: A-fragments of a2^T by ldmatrix.trans
+//      from the resident a2, 16 x 64 warp tiles added into the block's fp32
+//      slice (a read-modify-write per 64 rows);
+//    da2 = da3 w2x^T from slabs of w2xT through the same ring, to the fp32
+//      da2 workspace (stored evict-first: pass D reads it after the launch);
+//  - then d3c = round(sum_K da3): dw2a[:h0] += pool^T d3c, dpool = d3c w2p^T
+//    (a warp per row of w2p), added at the arg2 rows of da2.
+// The ring carries 64-row x 256-column slabs of w2x then w2xT per chunk, two
+// slots, 16-byte cp.async issued one slab ahead across chunk and patch
+// boundaries, one barrier per slab (K2's ring).
+// Shared memory at K = 256, h(128, 512) -> 512: 223,488 bytes (a2 68 KB;
+// R 65 KB, the chunk buffer [64, h1 + 8] bf16, holding a3 then da3; the
+// ring 66 KB; vectors, row masks, pool, argmaxes and the pairs' exchange
+// words 18 KB): one block per SM. A patch longer than K = 256 at these
+// widths does not fit (17 KB more per 64 rows); the route's gate sends it
+// to patch_encoder_bwd_kernel.
+// Measured on the card (PERF.md): two warps a row beat one (the column sums'
+// registers spilled); spreading the dw2b^T columns over the warps, L2
+// eviction hints on the slice and red.global adds for dw2x did not help:
+// the slice's read-modify-writes (dw2x each chunk, dw2b^T and dw2a[:h0]
+// each patch) move more bytes than anything else here.
+__global__ void __launch_bounds__(kMmaThreads, 1) patch_encoder_bwd_c_mma_kernel(Params<bf16> p) {
+  using namespace psam;
+  extern __shared__ __align__(128) float smem[];
+  unsigned char* const base = reinterpret_cast<unsigned char*>(smem);
+  const CLayout L(p.K, p.cin, p.h0, p.h1, p.cout);
+  const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
+  const int K = p.K, cin = p.cin, cinp = L.cinp, h0 = p.h0, h1 = p.h1, cout = p.cout;
+  const int mwords = L.mwords, npair = h1 / 2;
+  const bool tanh_act = p.tanh_act != 0;
+  bf16* const a2 = reinterpret_cast<bf16*>(base + L.a2);
+  bf16* const w1a = reinterpret_cast<bf16*>(base + L.w1a);
+  bf16* const w1b = reinterpret_cast<bf16*>(base + L.w1b);
+  bf16* const xw = reinterpret_cast<bf16*>(base + L.xw);
+  bf16* const ch = reinterpret_cast<bf16*>(base + L.ch);
+  float* const red = reinterpret_cast<float*>(base + L.red);
+  float* const d3c = reinterpret_cast<float*>(base + L.d3c);
+  bf16* const ring = reinterpret_cast<bf16*>(base + L.ring);
+  float* const up = reinterpret_cast<float*>(base + L.up);
+  uint32_t* const mask = reinterpret_cast<uint32_t*>(base + L.mask);
+  float* const pool = reinterpret_cast<float*>(base + L.pool);
+  int* const arg2 = reinterpret_cast<int*>(base + L.arg2);
+  int* const arg4 = reinterpret_cast<int*>(base + L.arg4);
+  float* const dov = reinterpret_cast<float*>(base + L.dov);
+  float* const xch = reinterpret_cast<float*>(base + L.xch);
+  // The per-column vectors, biases already rounded to bf16.
+  float* const b1a = reinterpret_cast<float*>(base + L.vec);
+  float* const s1 = b1a + h0;
+  float* const t1 = s1 + h0;
+  float* const b1b = t1 + h0;
+  float* const b2a = b1b + h0;
+  float* const s2 = b2a + h1;
+  float* const t2 = s2 + h1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, rg = warp & 1, cg = warp >> 1;
+  const int lda = h0 + 8, ldc = h1 + 8, ldx = cinp + 8;
+  float* const work = p.work + (size_t)blockIdx.x * O.total;
+  float* const dw2x = work + O.w2a + (size_t)h0 * h1;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+
+  // The ring's slabs in the order of use, per chunk: w2x = w2a[h0:] (a3) by
+  // kSlabN-column slices of kSlabK-row slabs, then w2xT (da2, h0 <= 128
+  // columns: one slice). Slab s goes to ring slot s % kStages, kStages - 1
+  // slabs ahead of its use; the sequence runs on over the block's chunks.
+  const int kh0 = (h0 + kSlabK - 1) / kSlabK, kh1 = (h1 + kSlabK - 1) / kSlabK;
+  const int nh1 = (h1 + kSlabN - 1) / kSlabN, n_a = nh1 * kh0, per_chunk = n_a + kh1;
+  const int my_patches = (p.npatch - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int n_slabs = my_patches * (L.kp / kChunk) * per_chunk;
+  // Thread tid copies the 16-byte chunks (rows cr + i kCopyStride, columns
+  // cc..cc + 7) of each slab; entries past the weight's edge are zeroed.
+  constexpr int kChunksN = kSlabN / 8, kCopyStride = kMmaThreads / kChunksN;
+  static_assert(kMmaThreads % kChunksN == 0 && kSlabK % kCopyStride == 0, "slab copy");
+  const int cr = tid / kChunksN, cc = (tid % kChunksN) * 8;
+  const uint32_t ring_at = smem_u32(ring + cr * kLdSlab + cc);
+  int is = 0;
+  auto issue = [&]() {
+    if (is < n_slabs) {
+      const int q = is % per_chunk;
+      const bool tr = q >= n_a;
+      const bf16* W = tr ? p.w2xT : p.w2a + (size_t)h0 * h1;
+      const int kdim = tr ? h1 : h0, n = tr ? h0 : h1;
+      const int k0 = (tr ? q - n_a : q % kh0) * kSlabK + cr, n0 = (tr ? 0 : q / kh0) * kSlabN + cc;
+      const bf16* src = W + (size_t)k0 * n + n0;
+      const uint32_t dst = ring_at + (is % kStages) * (kSlabK * kLdSlab * 2);
+#pragma unroll
+      for (int i = 0; i < kSlabK / kCopyStride; ++i) {
+        const bool in = n0 < n && k0 + i * kCopyStride < kdim;
+        cp_async16(dst + i * (kCopyStride * kLdSlab * 2),
+                   in ? src + (size_t)i * kCopyStride * n : W, in);
+      }
+    }
+    cp_async_commit();
+    ++is;
+  };
+  int s = 0;
+  auto next_slab = [&]() {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue();
+    return ring + (s++ % kStages) * kSlabK * kLdSlab;
+  };
+  constexpr int kSteps = kSlabK / 16;
+
+  for (int i = 0; i < kStages - 1; ++i) issue();
+  for (int i = tid; i < h0; i += kMmaThreads) {
+    b1a[i] = round_to<bf16>(p.b1a[i]);
+    s1[i] = p.s1[i];
+    t1[i] = p.t1[i];
+    b1b[i] = round_to<bf16>(p.b1b[i]);
+  }
+  for (int i = tid; i < h1; i += kMmaThreads) {
+    b2a[i] = round_to<bf16>(p.b2a[i]);
+    s2[i] = p.s2[i];
+    t2[i] = p.t2[i];
+  }
+  for (int i = tid; i < kChunk * mwords; i += kMmaThreads) mask[i] = 0u;
+  // The row epilogue's warp pair (rows), half (columns) and pair barrier.
+  const int pair = warp >> 1, half = warp & 1, bar = 1 + pair;
+  const int hpair = npair / 2, hoff = half * hpair;  // column pairs a half, its first
+  // This lane's partial column sums over its pair's rows (columns 2 (hoff +
+  // lane + 32 j) + e at [2 j + e]): ds2, dt2 over the block's patches,
+  // sum_K da3 over the patch; and this thread's column of db2a / db2b.
+  float ps[kHalf], pt[kHalf], pd[kHalf];
+#pragma unroll
+  for (int k = 0; k < kHalf; ++k) ps[k] = pt[k] = 0.0f;
+  float vb2a = 0.0f, vb2b = 0.0f;
+
+  for (int pi = blockIdx.x; pi < p.npatch; pi += gridDim.x) {
+    const bf16* __restrict__ xpatch = p.x + (size_t)pi * K * cin;
+    float* const da2 = p.da2 + (size_t)pi * K * h0;
+    // R is free (the previous patch ended in a barrier): stage 1's weights.
+    copy_tile_async(w1a, lda, p.w1a, h0, 0, cinp, cin, 0, h0, h0);
+    copy_tile_async(w1b, lda, p.w1b, h0, 0, h0, h0, 0, h0, h0);
+    cp_async_commit();
+    for (int i = tid; i < L.xslots * 16 * ldx; i += kMmaThreads) xw[i] = zero;
+    // K2's max-pools and their first argmaxes, and dout.
+    for (int i = tid; i < h0; i += kMmaThreads) {
+      pool[i] = __bfloat162float(p.pool[(size_t)pi * h0 + i]);
+      arg2[i] = p.arg2[(size_t)pi * h0 + i];
+    }
+    for (int c = tid; c < cout; c += kMmaThreads) {
+      arg4[c] = p.arg4[(size_t)pi * cout + c];
+      dov[c] = __bfloat162float(p.dout[(size_t)pi * cout + c]);
+      vb2b += dov[c];
+    }
+    __syncthreads();
+    rows_matmul<bf16, 1>(pool, h0, h0, p.w2a, h1, up, h1);
+    cp_async_wait<0>();  // W1a and W1b (and the ring's slab in flight) have landed
+    __syncthreads();
+
+    // Stage 1, once per patch: each warp takes 16-row tiles; the products run
+    // on registers (the first Dense's output, after LN -> GELU, is packed
+    // C-to-A into the second's operand) and a2 goes to shared memory in bf16.
+    {
+      const int nt1 = h0 / 8, np1 = h0 / 16;
+      bf16* const xt = xw + warp * 16 * ldx;
+      for (int t = warp; warp < L.xslots && t < L.kp / 16; t += L.xslots) {
+        const int r0 = 16 * t;
+        // The tile's 16 rows are contiguous in x: 4 coalesced loads a lane in
+        // flight, then their stores (columns cin..cinp stay zero).
+        for (int e0 = lane; e0 < 16 * cin; e0 += 128) {
+          bf16 v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + 32 * u;
+            v[u] = e < 16 * cin && r0 * cin + e < K * cin ? xpatch[(size_t)r0 * cin + e] : zero;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + 32 * u, r = e / cin;
+            if (e < 16 * cin) xt[r * ldx + e - r * cin] = v[u];
+          }
+        }
+        __syncwarp();
+        float acc[1][kNt1][4];
+        zero_acc(acc);
+        mma_smem<1>(acc, xt, ldx, 0, 0, w1a, lda, 0, 0, cinp / 16, np1);
+        // Dense rounding, then LN over rows g (h = 0) and g + 8 (h = 1), whose
+        // values are spread over the 4 lanes of a quad: two-pass fp32 stats.
+        float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f}, mean[2], inv[2];
+#pragma unroll
+        for (int j = 0; j < kNt1; ++j) {
+          if (j >= nt1) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float& v = acc[0][j][i];
+            v = round_to<bf16>(round_to<bf16>(v) + b1a[8 * j + 2 * t4 + (i & 1)]);
+            sum[i >> 1] += v;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mean[h] = quad_sum(sum[h]) / h0;
+#pragma unroll
+        for (int j = 0; j < kNt1; ++j) {
+          if (j >= nt1) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float d = acc[0][j][i] - mean[i >> 1];
+            sq[i >> 1] += d * d;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(quad_sum(sq[h]) / h0 + 1e-5f);
+        // GELU(LN) with the affine in fp32, packed C-to-A as it goes.
+        uint32_t a1[kNt1 / 2][4];
+#pragma unroll
+        for (int kk = 0; kk < kNt1 / 2; ++kk) {
+          float y[2][4] = {};
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int j = 2 * kk + q;
+            if (j >= nt1) continue;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int col = 8 * j + 2 * t4 + (i & 1);
+              y[q][i] = round_to<bf16>(act_fwd(
+                  (acc[0][j][i] - mean[i >> 1]) * inv[i >> 1] * s1[col] + t1[col], tanh_act));
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            a1[kk][2 * q] = pack_bf16(y[q][0], y[q][1]);
+            a1[kk][2 * q + 1] = pack_bf16(y[q][2], y[q][3]);
+          }
+        }
+        // a2 = round(round(a1 W1b) + round(b1b)), 64 columns at a time.
+#pragma unroll
+        for (int c0 = 0; c0 < 8 * kNt1; c0 += 64) {
+          if (c0 >= h0) continue;
+          float acc2[1][8][4];
+          zero_acc(acc2);
+          mma_regs(acc2, a1, w1b, lda, c0, np1, min(4, (h0 - c0) / 16));
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = c0 + 8 * j + 2 * t4;
+            if (c0 + 8 * j >= h0) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<__nv_bfloat162*>(a2 + (r0 + g + 8 * h) * lda + col) =
+                  __floats2bfloat162_rn(
+                      round_to<bf16>(round_to<bf16>(acc2[0][j][2 * h]) + b1b[col]),
+                      round_to<bf16>(round_to<bf16>(acc2[0][j][2 * h + 1]) + b1b[col + 1]));
+          }
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) pd[k] = 0.0f;
+    for (int r0 = 0; r0 < L.kp; r0 += kChunk) {
+      const int nr = imin(kChunk, K - r0);
+      // a3 = round(round(a2 W2a[h0:] + up_pool) + round(b2a)) -> ch in bf16.
+      for (int sl = 0; sl < nh1; ++sl) {
+        const int wc = sl * kSlabN + kGroupN * cg;
+        float acc[2][kNt2][4];
+        zero_acc(acc);
+        for (int kb = 0; kb < kh0; ++kb) {
+          const bf16* slab = next_slab();
+          mma_smem<kSteps>(acc, a2, lda, r0 + 32 * rg, kb * kSlabK, slab, kLdSlab, 0,
+                           kGroupN * cg, min(kSteps, (h0 - kb * kSlabK) / 16), group_pairs(h1, wc));
+        }
+#pragma unroll
+        for (int j = 0; j < kNt2; ++j) {
+          const int col = wc + 8 * j + 2 * t4;
+          if (col >= h1) continue;
+          const float u0 = up[col], u1 = up[col + 1], c0 = b2a[col], c1 = b2a[col + 1];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 32 * rg + 16 * m + g + 8 * h;
+              *reinterpret_cast<__nv_bfloat162*>(ch + r * ldc + col) = __floats2bfloat162_rn(
+                  round_to<bf16>(round_to<bf16>(acc[m][j][2 * h] + u0) + c0),
+                  round_to<bf16>(round_to<bf16>(acc[m][j][2 * h + 1] + u1) + c1));
+            }
+        }
+      }
+      // The chunk's row masks: bit c of row r when column c's max is row
+      // r0 + r. The masks were zeroed before the last slab barrier; integer
+      // ORs give the same masks in any order.
+      for (int c = tid; c < cout; c += kMmaThreads) {
+        const int r = arg4[c] - r0;
+        if (r >= 0 && r < nr) atomicOr(mask + r * mwords + (c >> 5), 1u << (c & 31));
+      }
+      __syncthreads();  // a3 and the masks are complete
+      // The row epilogue: warps 2 q and 2 q + 1 take rows q, q + 8, ..., each
+      // half of a row's columns, a lane holding the column pairs half * npair
+      // / 2 + lane + 32 j in registers; the row sums add the two halves'
+      // warp sums through shared memory (pair_sum).
+      for (int r = pair; r < kChunk; r += kMmaWarps / 2) {
+        __nv_bfloat162* const row = reinterpret_cast<__nv_bfloat162*>(ch + r * ldc) + hoff;
+        if (r >= nr) {  // past the patch: zero da3
+          for (int i = lane; i < hpair; i += 32) row[i] = __floats2bfloat162_rn(0.0f, 0.0f);
+          continue;
+        }
+        float v[kHalf], d[kHalf];
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kHalf / 2; ++j) {
+          const int i = lane + 32 * j;
+          const float2 f = i < hpair ? __bfloat1622float2(row[i]) : make_float2(0.0f, 0.0f);
+          v[2 * j] = f.x;
+          v[2 * j + 1] = f.y;
+          d[2 * j] = d[2 * j + 1] = 0.0f;
+          sum += f.x + f.y;
+        }
+        const float mean = pair_sum(sum, xch, 0, half, bar) / h1;
+        float q = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kHalf / 2; ++j) {
+          if (lane + 32 * j >= hpair) continue;
+          const float c0 = v[2 * j] - mean, c1 = v[2 * j + 1] - mean;
+          q += c0 * c0 + c1 * c1;
+        }
+        const float inv = rsqrtf(pair_sum(q, xch, 1, half, bar) / h1 + 1e-5f);
+        // The columns c whose max is this row, in increasing c: dg3 += dout_c
+        // w2b[:, c] and dw2b^T[c] += g3 dout_c (each (c, j) by one thread once
+        // a patch); a column's loads issued together, then its stores.
+        const uint32_t* const mrow = mask + r * mwords;
+        uint32_t any = 0u;
+        for (int w = 0; w < mwords; ++w) any |= mrow[w];
+        if (any) {
+          uint32_t gp[kHalf / 2];  // g3 = round(GELU(LN(a3))), bf16 pairs (exact)
+#pragma unroll
+          for (int j = 0; j < kHalf / 2; ++j) {
+            const int i = lane + 32 * j;
+            if (i >= hpair) continue;
+            const float2 sc = reinterpret_cast<const float2*>(s2 + 2 * hoff)[i];
+            const float2 sh = reinterpret_cast<const float2*>(t2 + 2 * hoff)[i];
+            gp[j] = pack_bf16(act_fwd((v[2 * j] - mean) * inv * sc.x + sh.x, tanh_act),
+                              act_fwd((v[2 * j + 1] - mean) * inv * sc.y + sh.y, tanh_act));
+          }
+          for (int w = 0; w < mwords; ++w) {
+            uint32_t bits = mrow[w];
+            while (bits) {
+              const int c = 32 * w + __ffs(bits) - 1;
+              bits &= bits - 1;
+              const float coef = dov[c];
+              const __nv_bfloat162* const wr =
+                  reinterpret_cast<const __nv_bfloat162*>(p.w2bT + (size_t)c * h1) + hoff;
+              float2* const wk = reinterpret_cast<float2*>(work + O.w2b + (size_t)c * h1) + hoff;
+              __nv_bfloat162 wv[kHalf / 2];
+              float2 o[kHalf / 2];
+#pragma unroll
+              for (int j = 0; j < kHalf / 2; ++j) {
+                const int i = lane + 32 * j;
+                if (i >= hpair) continue;
+                wv[j] = __ldg(wr + i);
+                o[j] = wk[i];
+              }
+#pragma unroll
+              for (int j = 0; j < kHalf / 2; ++j) {
+                const int i = lane + 32 * j;
+                if (i >= hpair) continue;
+                const float2 f = __bfloat1622float2(wv[j]);
+                d[2 * j] = fmaf(coef, f.x, d[2 * j]);
+                d[2 * j + 1] = fmaf(coef, f.y, d[2 * j + 1]);
+                // the bf16 pair unpacked: its bits are the float's top half
+                o[j].x = fmaf(__uint_as_float(gp[j] << 16), coef, o[j].x);
+                o[j].y = fmaf(__uint_as_float(gp[j] & 0xffff0000u), coef, o[j].y);
+                wk[i] = o[j];
+              }
+            }
+          }
+        }
+        // dl = dg3 GELU'(y), then the LN backward: da3 = inv (dl s - mean(dl
+        // s) - xhat mean(dl s xhat)); ds2 += dl xhat, dt2 += dl.
+        float m1 = 0.0f, m2 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kHalf / 2; ++j) {
+          const int i = lane + 32 * j;
+          if (i >= hpair) continue;
+          const float2 sc = reinterpret_cast<const float2*>(s2 + 2 * hoff)[i];
+          const float2 sh = reinterpret_cast<const float2*>(t2 + 2 * hoff)[i];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 2 * j + e;
+            const float scale = e ? sc.y : sc.x, shift = e ? sh.y : sh.x;
+            const float xh = (v[k] - mean) * inv;
+            const float dl = d[k] * act_grad(xh * scale + shift, tanh_act);
+            ps[k] = fmaf(dl, xh, ps[k]);
+            pt[k] += dl;
+            d[k] = dl * scale;
+            m1 += d[k];
+            m2 += d[k] * xh;
+          }
+        }
+        const float2 mu = pair_sum2(m1, m2, xch, half, bar);
+        const float mu1 = mu.x / h1, mu2 = mu.y / h1;
+#pragma unroll
+        for (int j = 0; j < kHalf / 2; ++j) {
+          const int i = lane + 32 * j;
+          if (i >= hpair) continue;
+          float da[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 2 * j + e;
+            da[e] = inv * (d[k] - mu1 - (v[k] - mean) * inv * mu2);
+            pd[k] += da[e];
+          }
+          row[i] = __floats2bfloat162_rn(da[0], da[1]);  // da3, rounded
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < kChunk * mwords; i += kMmaThreads) mask[i] = 0u;
+
+      // dw2x += a2^T da3 over the chunk's rows: 16 x 64 warp tiles, each
+      // loaded from the block's slice, accumulated, stored back.
+      {
+        const int ntn = (h1 + 63) / 64, ntiles = (h0 / 16) * ntn;
+        for (int t = warp; t < ntiles; t += kMmaWarps) {
+          const int i0 = 16 * (t / ntn), n0 = 64 * (t % ntn);
+          const int np = imin(4, (h1 - n0) / 16);
+          float* const out = dw2x + (size_t)i0 * h1 + n0;
+          float acc[1][8][4];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float2 o = make_float2(0.0f, 0.0f);
+              if (j < 2 * np) o = *reinterpret_cast<const float2*>(out + (size_t)(g + 8 * h) * h1 + 8 * j + 2 * t4);
+              acc[0][j][2 * h] = o.x;
+              acc[0][j][2 * h + 1] = o.y;
+            }
+          mma_smem_tn<kSteps>(acc, a2, lda, r0, i0, ch, ldc, 0, n0, kChunk / 16, np);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j >= 2 * np) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float2*>(out + (size_t)(g + 8 * h) * h1 + 8 * j + 2 * t4) =
+                  make_float2(acc[0][j][2 * h], acc[0][j][2 * h + 1]);
+          }
+        }
+      }
+      // da2's pointwise part, da3 @ w2x^T, to the workspace: warp (rg, cg)
+      // owns rows 32 rg.. and columns 16 cg.. (h0 <= 128).
+      {
+        const int n0 = 16 * cg;
+        float acc[2][2][4];
+        zero_acc(acc);
+        for (int kb = 0; kb < kh1; ++kb) {
+          const bf16* slab = next_slab();
+          if (n0 < h0)
+            mma_smem<kSteps>(acc, ch, ldc, 32 * rg, kb * kSlabK, slab, kLdSlab, 0, n0,
+                             min(kSteps, (h1 - kb * kSlabK) / 16), 1);
+        }
+        if (n0 < h0) {
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = r0 + 32 * rg + 16 * m + g + 8 * h;
+                if (r < K)
+                  __stcs(reinterpret_cast<float2*>(da2 + (size_t)r * h0 + n0 + 8 * j + 2 * t4),
+                         make_float2(acc[m][j][2 * h], acc[m][j][2 * h + 1]));
+              }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the chunk buffer
+    // The pooled branch: sum_K da3 over the warps in warp order (also db2a);
+    // d3c = round(it); dw2a[:h0] += pool^T d3c; dpool = d3c @ w2p^T goes to
+    // the first maximal row of each column.
+#pragma unroll
+    for (int j = 0; j < kHalf / 2; ++j) {
+      const int i = lane + 32 * j;
+      if (i < hpair)
+        *reinterpret_cast<float2*>(red + pair * h1 + 2 * (hoff + i)) =
+            make_float2(pd[2 * j], pd[2 * j + 1]);
+    }
+    __syncthreads();
+    for (int j = tid; j < h1; j += kMmaThreads) {
+      float sum = 0.0f;
+      for (int w = 0; w < kMmaWarps / 2; ++w) sum += red[w * h1 + j];
+      vb2a += sum;
+      d3c[j] = round_to<bf16>(sum);
+    }
+    __syncthreads();
+    {  // 4 entries of one row a thread, 4 such loads in flight (h1 % 4 == 0)
+      float4* const w4 = reinterpret_cast<float4*>(work + O.w2a);
+      const int n4 = h0 * h1 / 4;
+      for (int e0 = tid; e0 < n4; e0 += 4 * kMmaThreads) {
+        float4 o[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (e0 + u * kMmaThreads < n4) o[u] = w4[e0 + u * kMmaThreads];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * kMmaThreads;
+          if (e >= n4) continue;
+          const float pv = pool[4 * e / h1];
+          const float* const dc = d3c + 4 * e % h1;
+          o[u].x += pv * dc[0];
+          o[u].y += pv * dc[1];
+          o[u].z += pv * dc[2];
+          o[u].w += pv * dc[3];
+          w4[e] = o[u];
+        }
+      }
+    }
+    for (int i = warp; i < h0; i += kMmaWarps) {
+      const __nv_bfloat162* const wr = reinterpret_cast<const __nv_bfloat162*>(p.w2a + (size_t)i * h1);
+      float acc = 0.0f;
+      for (int q = lane; q < npair; q += 32) {
+        const float2 w = __bfloat1622float2(wr[q]);
+        acc = fmaf(d3c[2 * q], w.x, acc);
+        acc = fmaf(d3c[2 * q + 1], w.y, acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) da2[(size_t)arg2[i] * h0 + i] += acc;
+    }
+    __syncthreads();
+  }
+  // The block's ds2, dt2 (over the warps in warp order), db2a and db2b into
+  // its slice.
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int j = 0; j < kHalf / 2; ++j) {
+      const int i = lane + 32 * j;
+      if (i < hpair)
+        *reinterpret_cast<float2*>(red + pair * h1 + 2 * (hoff + i)) =
+            pass ? make_float2(pt[2 * j], pt[2 * j + 1]) : make_float2(ps[2 * j], ps[2 * j + 1]);
+    }
+    __syncthreads();
+    for (int j = tid; j < h1; j += kMmaThreads) {
+      float sum = 0.0f;
+      for (int w = 0; w < kMmaWarps / 2; ++w) sum += red[w * h1 + j];
+      work[(pass ? O.t2 : O.s2) + j] += sum;
+    }
+    __syncthreads();
+  }
+  if (tid < h1) work[O.b2a + tid] += vb2a;
+  if (tid < cout) work[O.b2b + tid] += vb2b;
 }
 
 // grads[e] = sum over the slices, in slice order, of work[s][e'] (e' = e
@@ -596,22 +1319,64 @@ int smem_optin() {
   return bytes;
 }
 
-// The kernel's shared-memory limit is raised to the device's maximum once
-// per instantiation, at its first launch (the port runs on one device); a
-// launch that needs more fails and its error is returned.
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
+// The bf16 route's gate: K2's mma gate (h0 <= 128, h0, h1 and C_out
+// multiples of 16) and the pass-C kernel's shared memory within the
+// device's limit (K <= 256 at h(128, 512)).
+bool mma_route(int K, int cin, int h0, int h1, int cout, int dtype) {
+  static const int limit = smem_optin();
+  return dtype == 1 && h0 % 16 == 0 && h0 <= 8 * kNt1 && h1 % 16 == 0 && cout % 16 == 0 &&
+         CLayout(K, cin, h0, h1, cout).total <= limit;
+}
+
+// Passes: bit 0 pass C, bit 1 pass D, bit 2 the slices' reduction. The bf16
+// mma route launches C (patch_encoder_bwd_c_mma_kernel) and D
+// (patch_encoder_bwd_d_kernel) apart, so that a caller may time them; every
+// other shape runs both passes in patch_encoder_bwd_kernel and takes all
+// three bits. Each kernel's shared-memory limit is raised to the device's
+// maximum once per instantiation, at its first launch (the port runs on one
+// device); a launch that needs more fails and its error is returned.
 template <typename T>
-int run(const Params<T>& p, int nslices, float* grads, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      patch_encoder_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin());
-  if (attr != cudaSuccess) return (int)attr;
+int run(const Params<T>& p, int nslices, float* grads, bool mma, int passes,
+        cudaStream_t stream) {
+  static const int limit = smem_optin();
   const Layout L(p.cin, p.h0, p.h1, p.cout, p.K);
   const size_t smem = (size_t)L.total * sizeof(float);
-  patch_encoder_bwd_kernel<T><<<nslices, kThreads, smem, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
-  reduce_slices_kernel<<<(O.total + 255) / 256, 256, 0, stream>>>(p.work, nslices, O, p.h1,
-                                                                   p.cout, grads);
+  cudaError_t err = cudaSuccess;
+  if (!mma) {
+    if (passes != 7) return (int)cudaErrorInvalidValue;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        patch_encoder_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (attr != cudaSuccess) return (int)attr;
+    patch_encoder_bwd_kernel<T><<<nslices, kThreads, smem, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    if (passes & 1) {
+      static const cudaError_t attr = cudaFuncSetAttribute(
+          patch_encoder_bwd_c_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+      if (attr != cudaSuccess) return (int)attr;
+      if (!aligned16(p.w1a) || !aligned16(p.w1b) || !aligned16(p.w2a) || !aligned16(p.w2xT))
+        return (int)cudaErrorMisalignedAddress;
+      const CLayout C(p.K, p.cin, p.h0, p.h1, p.cout);
+      patch_encoder_bwd_c_mma_kernel<<<nslices, kMmaThreads, C.total, stream>>>(p);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    if (passes & 2) {
+      static const cudaError_t attr = cudaFuncSetAttribute(
+          patch_encoder_bwd_d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+      if (attr != cudaSuccess) return (int)attr;
+      patch_encoder_bwd_d_kernel<T><<<nslices, kThreads, smem, stream>>>(p);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (passes & 4) {
+    const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
+    reduce_slices_kernel<<<(O.total + 255) / 256, 256, 0, stream>>>(p.work, nslices, O, p.h1,
+                                                                     p.cout, grads);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -623,6 +1388,13 @@ extern "C" int psam_patch_encoder_bwd_slices(int npatch) {
   return std::max(1, std::min(npatch, num_sms()));
 }
 
+// 1 when psam_patch_encoder_bwd takes the bf16 mma route at these sizes
+// (pass C on patch_encoder_bwd_c_mma_kernel, pass D on its own launch),
+// else 0 (both passes in patch_encoder_bwd_kernel).
+extern "C" int psam_patch_encoder_bwd_route(int K, int cin, int h0, int h1, int cout, int dtype) {
+  return mma_route(K, cin, h0, h1, cout, dtype) ? 1 : 0;
+}
+
 // x [B, G*K, cin], dout [B, G, cout] and the weight matrices ([in, out]) and
 // their transposes ([out, in]) in the compute dtype (0 = float32,
 // 1 = bfloat16); biases and LN parameters fp32. pool [B, G, h0] (compute
@@ -630,7 +1402,12 @@ extern "C" int psam_patch_encoder_bwd_slices(int npatch) {
 // K2's saved max-pools and first argmaxes for the same x and weights.
 // dx: [B, G*K, cin] in the compute dtype, or null. da2: fp32 workspace
 // [B*G*K, h0]. work: fp32 [nslices, 12 grads], zeroed. grads: fp32, the 12
-// parameter grads flattened in order. h0, h1, cout <= 512.
+// parameter grads flattened in order. h0, h1, cout <= 512. passes: 7 (C, D
+// and the reduction); on the mma route any subset, for timing them apart
+// (D reads the da2 that C wrote). On the mma route w1a, w1b, w2a and w2xT
+// are copied by 16-byte cp.async: their pointers must be 16-byte aligned,
+// as fresh torch allocations are, else the call returns
+// cudaErrorMisalignedAddress.
 extern "C" int psam_patch_encoder_bwd(const void* x, const void* dout, const void* pool,
                                       const void* arg2, const void* arg4, int B, int G, int K,
                                       int cin, const void* w1a, const void* b1a, const void* s1,
@@ -640,12 +1417,14 @@ extern "C" int psam_patch_encoder_bwd(const void* x, const void* dout, const voi
                                       const void* w2pT, const void* w2xT, const void* w2bT,
                                       int h0, int h1, int cout, void* dx, void* da2, void* work,
                                       int nslices, void* grads, int tanh_act, int dtype,
-                                      void* stream) {
+                                      int passes, void* stream) {
   const int lim = 32 * psam::kMaxPerLane;
   if (B <= 0 || G <= 0 || K <= 0 || cin <= 0 || h0 <= 0 || h1 <= 0 || cout <= 0 ||
-      h0 > lim || h1 > lim || cout > lim || nslices <= 0 || !pool || !arg2 || !arg4)
+      h0 > lim || h1 > lim || cout > lim || nslices <= 0 || !pool || !arg2 || !arg4 ||
+      passes <= 0 || passes > 7)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool mma = mma_route(K, cin, h0, h1, cout, dtype);
   auto fill = [&](auto* typed) {
     using T = std::remove_cv_t<std::remove_pointer_t<decltype(typed)>>;
     Params<T> p;
@@ -680,7 +1459,7 @@ extern "C" int psam_patch_encoder_bwd(const void* x, const void* dout, const voi
     p.cout = cout;
     p.tanh_act = tanh_act;
     p.tc = std::is_same<T, bf16>::value && h0 % 16 == 0 && h1 % 16 == 0 && cout % 16 == 0;
-    return run<T>(p, nslices, static_cast<float*>(grads), st);
+    return run<T>(p, nslices, static_cast<float*>(grads), mma, passes, st);
   };
   if (dtype == 1) return fill(static_cast<bf16*>(nullptr));
   return fill(static_cast<float*>(nullptr));

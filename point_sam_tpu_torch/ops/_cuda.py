@@ -53,8 +53,9 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P,
                                _P, _P, _P, _P, _P,
-                               _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P],
+                               _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "psam_patch_encoder_bwd_slices": [_I],
+    "psam_patch_encoder_bwd_route": [_I, _I, _I, _I, _I, _I],
     "psam_fps": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "psam_interp_weights": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "psam_attention_heads": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],

@@ -9,6 +9,34 @@ from __future__ import annotations
 import torch
 
 
+class _SelectRows(torch.autograd.Function):
+    """``flat.index_select(0, idx)`` whose backward adds each row's grads in
+    a fixed order. Autograd's own backward of ``index_select`` is
+    ``index_add_``, which on a CUDA tensor adds with atomics, in an order
+    that changes from run to run, so a train step's grads did not repeat
+    bit for bit (the 3-NN interpolation of the decoder tail gathers each
+    token row for many points). On a CUDA tensor the backward is
+    ``index_put_`` with accumulate, which sorts the indices and sums each
+    row's run in that order; on a CPU tensor it stays ``index_add_``, which
+    adds in index order."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = flat.shape[0]
+        return flat.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.rows,) + tuple(grad.shape[1:]))
+        if grad.is_cuda:
+            out.index_put_((idx,), grad, accumulate=True)
+        else:
+            out.index_add_(0, idx, grad)
+        return out, None
+
+
 def batch_index_select(x: torch.Tensor, idx: torch.Tensor, axis: int = 1) -> torch.Tensor:
     """Gather along ``axis`` with per-batch indices.
 
@@ -31,7 +59,10 @@ def batch_index_select(x: torch.Tensor, idx: torch.Tensor, axis: int = 1) -> tor
         (B,) + (1,) * (idx.ndim - 1)
     )
     flat_idx = (idx.long() + offsets).reshape(-1)
-    out = flat.index_select(0, flat_idx)
+    if torch.is_grad_enabled() and flat.requires_grad:
+        out = _SelectRows.apply(flat, flat_idx)
+    else:
+        out = flat.index_select(0, flat_idx)
     out = out.reshape(tuple(idx.shape) + tuple(x.shape[2:]))
     if axis != 1:
         out = torch.movedim(out, idx.ndim - 1, axis + idx.ndim - 2)

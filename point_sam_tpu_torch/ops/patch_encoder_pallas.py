@@ -9,7 +9,9 @@ name so each module's counterpart is easy to find).
   ``patch_encoder_plain`` on a CPU tensor; when a grad is needed it also
   returns, and the Function saves, both max-pools' first argmaxes;
 - backward: kernel K7 (``csrc/patch_encoder_bwd.cu``, replacing
-  ``patch_encoder_fused_bwd``) on a CUDA tensor,
+  ``patch_encoder_fused_bwd``; in bf16 at K2's mma widths pass C runs on
+  mma.sync tiles and pass D as a launch of its own, see ``bwd_route``) on a
+  CUDA tensor,
   ``patch_encoder_bwd_plain`` on a CPU tensor, both routing the max-pool
   gradients to the saved rows.
 
@@ -257,18 +259,26 @@ def patch_encoder_bwd_plain(grouped, params, dout, *, num_groups, group_size, cd
     return dx, (dw1a, db1a, ds1, dt1, dw1b, db1b, dw2a, db2a, ds2, dt2, dw2b, db2b)
 
 
-@_cuda.counted
-def patch_encoder_bwd_cuda(grouped, params, dout, *, num_groups, group_size, cdt, saved,
-                           act: str = "erf", need_dx: bool = True):
-    """Kernel K7 on the card; same contract as ``patch_encoder_bwd_plain``
-    (dgrouped is None when ``need_dx`` is False), except that ``saved`` is
-    required: K7 reads the max-pools and their argmaxes that
-    ``patch_encoder_cuda(return_argmax=True)`` gave.
+# K7's launches for ``passes``: pass C, pass D, and all three (C, D and the
+# reduction of the per-block slices, bit 4).
+BWD_PASS_C, BWD_PASS_D, BWD_ALL = 1, 2, 7
 
-    The parameter grads are summed per persistent block into an fp32
-    workspace slice, then the slices are added in a fixed order by a
-    second launch, so the grads are the same from run to run.
-    """
+
+def bwd_route(group_size, cin, h0, h1, cout, cdt) -> str:
+    """K7's route at these sizes: "mma" (bf16 within K2's mma gate, where
+    the pass-C kernel's shared memory fits: pass C on mma.sync tiles, pass
+    D a launch of its own) or "single" (both passes in one launch)."""
+    ok = _cuda.library().psam_patch_encoder_bwd_route(group_size, cin, h0, h1, cout,
+                                                       _cuda.dtype_code(cdt))
+    return "mma" if ok else "single"
+
+
+def _bwd_launch(grouped, params, dout, *, num_groups, group_size, cdt, saved, act, need_dx,
+                passes=BWD_ALL):
+    """Launch K7's kernels (those of ``passes`` on the mma route, where a
+    caller may time them apart; every pass on the single route). Returns
+    (dx or None, the 12 grads, the route); the grads are complete only when
+    every pass ran."""
     w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b = params
     B, rows, cin = grouped.shape
     G, K = num_groups, group_size
@@ -307,13 +317,34 @@ def patch_encoder_bwd_cuda(grouped, params, dout, *, num_groups, group_size, cdt
         p(mats[2]), p(vecs[4]), p(vecs[5]), p(vecs[6]),
         p(tmats[0]), p(tmats[1]), p(tmats[2]), p(tmats[3]), p(tmats[4]),
         h0, h1, cout, p(dx), p(da2), p(work), slices, p(grads), int(act == "tanh"),
-        _cuda.dtype_code(cdt), _cuda.stream())
+        _cuda.dtype_code(cdt), passes, _cuda.stream())
     _cuda.check("psam_patch_encoder_bwd", code)
-    _cuda.count_launch(patch_encoder_bwd_cuda, B=B, G=G, K=K, cin=cin, h0=h0, h1=h1,
-                       cout=cout, cdt=str(cdt), act=act, need_dx=need_dx)
     dparams = tuple(g.view(p_.shape) for g, p_ in zip(grads.split(sizes), params))
     if dx is not None:
         dx = dx.to(grouped.dtype)
+    return dx, dparams, bwd_route(K, cin, h0, h1, cout, cdt)
+
+
+@_cuda.counted
+def patch_encoder_bwd_cuda(grouped, params, dout, *, num_groups, group_size, cdt, saved,
+                           act: str = "erf", need_dx: bool = True):
+    """Kernel K7 on the card; same contract as ``patch_encoder_bwd_plain``
+    (dgrouped is None when ``need_dx`` is False), except that ``saved`` is
+    required: K7 reads the max-pools and their argmaxes that
+    ``patch_encoder_cuda(return_argmax=True)`` gave. The launch is counted
+    with its route (``bwd_route``).
+
+    The parameter grads are summed per persistent block into an fp32
+    workspace slice, then the slices are added in a fixed order by a
+    last launch, so the grads are the same from run to run.
+    """
+    dx, dparams, route = _bwd_launch(grouped, params, dout, num_groups=num_groups,
+                                     group_size=group_size, cdt=cdt, saved=saved, act=act,
+                                     need_dx=need_dx)
+    B, _, cin = grouped.shape
+    _cuda.count_launch(patch_encoder_bwd_cuda, B=B, G=num_groups, K=group_size, cin=cin,
+                       h0=params[0].shape[1], h1=params[6].shape[1], cout=params[10].shape[1],
+                       cdt=str(cdt), act=act, need_dx=need_dx, route=route)
     return dx, dparams
 
 

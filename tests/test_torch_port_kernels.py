@@ -220,9 +220,11 @@ def test_k2_kernel_repeats_bit_for_bit(cuda, dtype):
     assert torch.equal(first, second)
 
 
-# (B, G, K, C_in, h0, h1, C_out): a serve, a hier level-2 and a train shape.
+# (B, G, K, C_in, h0, h1, C_out): a serve, a hier level-2, a hier level-1 and
+# a train shape.
 K2_ARGMAX_SHAPES = [pytest.param(1, 2048, 256, 6, 128, 512, 512, id="serve"),
                     pytest.param(1, 512, 32, 131, 128, 256, 512, id="hier"),
+                    pytest.param(1, 2048, 32, 6, 64, 128, 128, id="hier1"),
                     pytest.param(4, 1024, 256, 4, 128, 512, 256, id="train")]
 
 
@@ -453,8 +455,8 @@ def test_k6_kernel_repeats_bit_for_bit(cuda, dtype):
         assert torch.equal(a, b)
 
 
-def pe_bwd_case(rng, device, dtype, G, K, cin, cout, ties=False):
-    params = to(pe_params(rng, cin, 128, 512, cout), device)
+def pe_bwd_case(rng, device, dtype, G, K, cin, cout, ties=False, h0=128, h1=512):
+    params = to(pe_params(rng, cin, h0, h1, cout), device)
     x = rng.standard_normal((2, G, K, cin)).astype(np.float32)
     if ties:  # duplicate neighbour rows: exact ties in every max-pool
         x[:, :, 1] = x[:, :, 0]
@@ -464,18 +466,51 @@ def pe_bwd_case(rng, device, dtype, G, K, cin, cout, ties=False):
     return x, params, do
 
 
+def k7_route(K, cin, h0, h1, cout, dtype):
+    """The route K7 should take: "mma" (bf16 pass C on mma.sync tiles, pass D
+    apart) at K2's mma widths where the pass-C kernel's shared memory fits
+    (K <= 256 at h(128, 512)), else "single" (one launch)."""
+    mma = (dtype == torch.bfloat16 and h0 % 16 == 0 and h0 <= 128 and h1 % 16 == 0
+           and cout % 16 == 0 and K <= 256)
+    return "mma" if mma else "single"
+
+
+def k7_launch_route():
+    """The route of K7's one counted launch since its counts were reset."""
+    (key,) = PE.patch_encoder_bwd_cuda.shapes
+    return dict(key)["route"]
+
+
+# (G, K, C_in, C_out, h0, h1): the first three keep their old IDs; then the
+# bf16 mma route's shapes: the train shapes at K = 256 (-> 256, -> 512), a
+# ragged last 64-row chunk (K = 77), the hier level-2 (C_in = 131) and
+# level-1 widths at K = 32.
+K7_SHAPES = [pytest.param(8, 20, 6, 40, 128, 512, id="8-20-6-40"),
+             pytest.param(4, 24, 4, 256, 128, 512, id="4-24-4-256"),
+             pytest.param(6, 20, 6, 512, 128, 512, id="6-20-6-512"),
+             pytest.param(3, 256, 4, 256, 128, 512, id="train256"),
+             pytest.param(2, 256, 6, 512, 128, 512, id="train512"),
+             pytest.param(6, 77, 4, 256, 128, 512, id="ragged77"),
+             pytest.param(8, 32, 131, 256, 128, 256, id="hier2"),
+             pytest.param(16, 32, 4, 128, 64, 128, id="hier1-4"),
+             pytest.param(16, 32, 6, 128, 64, 128, id="hier1-6")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["erf", "tanh"])
-@pytest.mark.parametrize("G,K,cin,cout", [(8, 20, 6, 40), (4, 24, 4, 256), (6, 20, 6, 512)])
-def test_k7_kernel_matches_plain(cuda, dtype, act, G, K, cin, cout):
+@pytest.mark.parametrize("G,K,cin,cout,h0,h1", K7_SHAPES)
+def test_k7_kernel_matches_plain(cuda, dtype, act, G, K, cin, cout, h0, h1):
     """K7 given K2's saved max-pools against the plain backward given the
-    same ones."""
+    same ones, on the route its sizes select (the launch counter records
+    it)."""
     rng = np.random.default_rng(7)
-    x, params, do = pe_bwd_case(rng, cuda, dtype, G, K, cin, cout)
+    x, params, do = pe_bwd_case(rng, cuda, dtype, G, K, cin, cout, h0=h0, h1=h1)
     kw = dict(num_groups=G, group_size=K, cdt=dtype, act=act)
     _, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+    PE.patch_encoder_bwd_cuda.shapes = {}
     gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, saved=saved, **kw)
+    assert k7_launch_route() == k7_route(K, cin, h0, h1, cout, dtype)
     wdx, wdp = PE.patch_encoder_bwd_plain(x, params, do, saved=saved, **kw)
     torch.cuda.synchronize()
     assert gdx.dtype == dtype and gdx.shape == x.shape
@@ -493,20 +528,61 @@ def test_k7_kernel_matches_plain(cuda, dtype, act, G, K, cin, cout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+def test_k7_mma_route_ties_match_plain(cuda, act):
+    """bf16 on the mma route with duplicated neighbour rows (exact ties in
+    both max-pools): K7 given K2's rows against plain given the same rows."""
+    rng = np.random.default_rng(71)
+    x, params, do = pe_bwd_case(rng, cuda, torch.bfloat16, 8, 32, 6, 512, ties=True)
+    kw = dict(num_groups=8, group_size=32, cdt=torch.bfloat16, act=act)
+    _, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+    PE.patch_encoder_bwd_cuda.shapes = {}
+    gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, saved=saved, **kw)
+    assert k7_launch_route() == "mma"
+    wdx, wdp = PE.patch_encoder_bwd_plain(x, params, do, saved=saved, **kw)
+    for g_, w_ in zip((gdx, *gdp), (wdx, *wdp)):
+        assert_norm(g_, w_, 5e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k7_kernel_repeats_bit_for_bit(cuda, dtype):
     """K2 (with its argmaxes) then K7, twice, at [2, 64 * 256, 4] h(128, 512)
-    -> 256: the same bits (fixed summation orders, no atomics)."""
+    -> 256: the same bits (fixed summation orders, no atomics on floats); in
+    bf16 on the mma route."""
     x, params, do = pe_bwd_case(np.random.default_rng(77), cuda, dtype, 64, 256, 4, 256)
     kw = dict(num_groups=64, group_size=256, cdt=dtype)
     runs = []
     for _ in range(2):
         out, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+        PE.patch_encoder_bwd_cuda.shapes = {}
         runs.append((out, *saved, *PE.patch_encoder_bwd_cuda(x, params, do, saved=saved,
                                                                need_dx=False, **kw)[1]))
+        assert k7_launch_route() == k7_route(256, 4, 128, 512, 256, dtype)
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_batch_index_select_backward_repeats_bit_for_bit(cuda):
+    """The gather's backward on the card (the decoder tail's 3-NN
+    interpolation at the ViT-L train shape: 3 x 10,000 points onto 1,024
+    token rows) returns the same bits twice: index_put_ with accumulate
+    sums each row in sorted-index order, where index_add_ adds with
+    atomics."""
+    G_ = importlib.import_module("point_sam_tpu_torch.ops.group")
+    rng = np.random.default_rng(12)
+    x = to(rng.standard_normal((2, 1024, 512)).astype(np.float32), cuda).requires_grad_()
+    idx = to(rng.integers(0, 1024, (2, 10000, 3)).astype(np.int32), cuda)
+    dy = to(rng.standard_normal((2, 10000, 3, 512)).astype(np.float32), cuda)
+    first, second = (torch.autograd.grad(G_.batch_index_select(x, idx), x, dy)[0]
+                     for _ in range(2))
+    assert torch.equal(first, second)
+    want = torch.zeros_like(x).reshape(-1, 512).index_add_(
+        0, (idx.long() + 1024 * torch.arange(2, device=cuda)[:, None, None]).reshape(-1),
+        dy.reshape(-1, 512)).reshape(x.shape)
+    assert_rel(first, want, 1e-5)
 
 
 @pytest.mark.cuda

@@ -91,6 +91,30 @@ def test_batch_index_select_and_repeat(rng):
                                   np.asarray(jops.repeat_interleave(x, 3, axis=1)))
 
 
+@pytest.mark.parametrize("axis", [1, 2])
+def test_batch_index_select_grad_matches_jax(rng, axis, monkeypatch):
+    """The gather's backward (the port's own, a fixed summation order on
+    every device) against jax.vjp of the JAX gather, with indices that hit
+    the same rows many times; on the CPU it is bit-equal to autograd's
+    backward of index_select."""
+    import jax
+
+    x = rng.standard_normal((2, 9, 4)).astype(np.float32)
+    idx = rng.integers(0, x.shape[axis], (2, 40) if axis == 2 else (2, 40, 3)).astype(np.int32)
+    out = jops.batch_index_select(x, idx, axis=axis)
+    dy = rng.standard_normal(out.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jops.batch_index_select(a, idx, axis=axis), x)
+    xt = t(x).requires_grad_()
+    got = torch.autograd.grad(ops.batch_index_select(xt, t(idx), axis=axis), xt, t(dy))[0]
+    np.testing.assert_allclose(n(got), np.asarray(vjp(dy)[0]), rtol=1e-6, atol=1e-6)
+    # autograd's own backward of the plain index_select
+    group = importlib.import_module("point_sam_tpu_torch.ops.group")
+    monkeypatch.setattr(group._SelectRows, "apply", lambda flat, i: flat.index_select(0, i))
+    xt = t(x).requires_grad_()
+    plain = torch.autograd.grad(ops.batch_index_select(xt, t(idx), axis=axis), xt, t(dy))[0]
+    assert torch.equal(got, plain)
+
+
 # ------------------------------------------------------------------ kNN
 @pytest.mark.parametrize("dense_max", [8192, 256])  # one-shot / key-tiled
 @pytest.mark.parametrize("with_valid", [False, True])
