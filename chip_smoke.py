@@ -11,7 +11,8 @@ last line):
    source, all started together), then print the attention, K2 and K7
    kernels' registers and stack (spill) bytes from ``cuobjdump
    --dump-resource-usage`` of the built library (reported, not gated; K7's
-   three: the pass-C mma kernel, pass D's, and the one-launch kernel);
+   four: the pass-C mma kernel, the pass-D mma kernel at both of its dw1a
+   register tilings, and the one-launch kernel);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
    so the decoder tail takes K4): the Predictor on the CPU (plain versions)
    and on the card (kernels), same weights, cloud and 3 clicks;
@@ -79,13 +80,15 @@ last line):
    rows (the first copy must win), and timed with and without them; K7 is given K2's saved max-pools from a launch outside its timed
    calls, and its plain version the same ones; on its bf16 mma route its
    pass C alone and passes C and D are timed too (pass D and the reduction
-   by difference). Then K2 -> K7 twice at the train shape must return the
-   same bits;
+   by difference), with pass D's own bound (``pe_bwd_d_work``). Then K2 ->
+   K7 twice at the train shape must return the same bits;
 15c. K7 at the edges of its bf16 mma route against its plain version, both
    activations, grids of 160-320 patches: the train widths at K = 256, K =
-   77, the hier level-2 (C_in = 131) and level-1 widths at K = 32,
-   duplicated rows; fp32 on the one-launch route; each launch's route
-   checked; two calls at the train shape -> 512 bit-equal;
+   77, the hier level-2 (C_in = 131) and level-1 widths at K = 32, h0 =
+   96, duplicated rows; fp32 on the one-launch route; each launch's route
+   checked; in bf16 pass D alone, given the da2 the kernel wrote, against
+   ``patch_encoder_bwd_stage1_plain`` with dx and without; two calls at the
+   train shape -> 512 bit-equal;
 15b. K6 at its edges against its plain version, fp32 and bf16: ragged S
    (77, 200, 2049) at every padded head size (dh 32, 64, 88, 128), dh = 36
    (not a multiple of 8: the bf16 kernels' element-wise loads and stores), a
@@ -169,6 +172,15 @@ def pe_bwd_work(groups, cin, h0, h1, cout, elem, need_dx, rows, rows4, rows_any)
     nbytes = (rows * cin * elem + w * elem + groups * cout * elem
               + groups * (h0 * elem + 4 * (h0 + cout)) + nparam * 4 + need_dx * rows * cin * elem)
     return nbytes, fwd + bwd + sparse
+
+
+def pe_bwd_d_work(rows, cin, h0, elem, need_dx):
+    """(bytes, FLOPs) of K7's pass D alone over ``rows`` grouped points, at
+    every row it runs: the fp32 da2 read and x read once (dx written once
+    when asked for); the first Dense, da2c w1b^T and g1^T da2c, x^T da1
+    (and da1 w1a^T for dx)."""
+    nbytes = rows * h0 * 4 + rows * cin * elem * (1 + need_dx)
+    return nbytes, 2 * rows * (2 * h0 * h0 + (2 + need_dx) * cin * h0)
 
 
 def pe_distinct_rows(torch, K, *args) -> int:
@@ -438,6 +450,8 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
             plain=lambda: PE.patch_encoder_bwd_plain(x, params, dout, saved=saved, **kw),
             compare=in_norm, work=(nbytes, {kind: flops}))
         if key["route"] == "mma":  # pass C alone, then C and D, timed apart
+            nbytes, flops = pe_bwd_d_work(rows, cin, h0, elem, need_dx)
+            case["pass_d_work"] = (nbytes, {kind: flops})
             launch = dict(saved=saved, need_dx=need_dx, **kw)
             case["passes"] = [
                 lambda: PE._bwd_launch(x, params, dout, passes=PE.BWD_PASS_C, **launch),
@@ -611,11 +625,15 @@ def patch_encoder_bwd_edges(torch, PE) -> None:
     blocks, so blocks walk two or three patches): the train widths at K = 256
     (-> 256, -> 512), K = 77 (a ragged last 64-row chunk), the hier level-2
     (C_in = 131, -> 256 and -> 512) and level-1 (C_in = 4 and 6) widths at
-    K = 32, duplicated input rows (ties in both max-pools). bf16 takes the
-    mma route (the launch counter's route is checked) and is held in norm
-    within 5e-2; fp32 takes the one-launch route, each grad within 1e-4 of
-    its largest plain entry. Then two K7 calls at the train shape [2, 1024 *
-    256, 6] -> 512 in bf16 must return the same bits."""
+    K = 32, h0 = 96 at K = 64, duplicated input rows (ties in both
+    max-pools). bf16 takes the mma route (the launch counter's route is
+    checked) and is held in norm within 5e-2; fp32 takes the one-launch
+    route, each grad within 1e-4 of its largest plain entry. In bf16, pass
+    D alone: the kernel's six stage-1 grads and dx, with dx and without,
+    against ``patch_encoder_bwd_stage1_plain`` given the da2 that pass C
+    wrote and pass D read, each within 1e-2 in norm (each output's worst
+    share of that bound printed). Then two K7 calls at the train shape [2,
+    1024 * 256, 6] -> 512 in bf16 must return the same bits."""
     g = torch.Generator(device="cuda").manual_seed(9)
 
     def randn(*shape, scale=1.0):
@@ -625,8 +643,11 @@ def patch_encoder_bwd_edges(torch, PE) -> None:
     cases = [(2, 80, 256, 4, 128, 512, 256, False), (2, 80, 256, 6, 128, 512, 512, False),
              (2, 80, 77, 4, 128, 512, 256, False), (2, 96, 32, 131, 128, 256, 256, False),
              (2, 96, 32, 131, 128, 256, 512, False), (2, 160, 32, 4, 64, 128, 128, False),
-             (2, 160, 32, 6, 64, 128, 128, False), (2, 80, 32, 6, 128, 512, 512, True)]
+             (2, 160, 32, 6, 64, 128, 128, False), (2, 80, 32, 6, 128, 512, 512, True),
+             (2, 96, 64, 6, 96, 256, 128, False)]
     worst = {}
+    names_d = ("dw1a", "db1a", "ds1", "dt1", "dw1b", "db1b", "dx")
+    worst_d = dict.fromkeys(names_d, 0.0)
     for B, G, K, cin, h0, h1, cout, ties in cases:
         prm = pe_params(randn, cin, h0, h1, cout)
         x = randn(B, G, K, cin)
@@ -659,10 +680,29 @@ def patch_encoder_bwd_edges(torch, PE) -> None:
                     check(share <= 1.0, f"{label} grad {i}: {share:.3g} of its tolerance")
                     key = f"{route} {str(dt).rsplit('.', 1)[-1]}"
                     worst[key] = max(worst.get(key, 0.0), share)
+                if dt != torch.bfloat16:
+                    continue
+                for need_dx in (True, False):  # pass D alone, given the kernel's da2
+                    dx, grads, _, da2 = PE._bwd_launch(xd, prm, dd, saved=saved, need_dx=need_dx,
+                                                       return_da2=True, **kw)
+                    wdx, wgrads = PE.patch_encoder_bwd_stage1_plain(
+                        xd.reshape(-1, cin), prm, da2, cdt=dt, act=act, need_dx=need_dx)
+                    pairs = list(zip(grads[:6], wgrads))
+                    pairs += [(dx.reshape(-1, cin), wdx)] if need_dx else []
+                    for name, (a, w) in zip(names_d, pairs):
+                        diff = (a - w).float()
+                        share = (diff.norm() / w.float().norm().clamp_min(1e-30)).item() / 1e-2
+                        check(bool(torch.isfinite(a).all()) and share <= 1.0,
+                              f"{label} pass D {name} (need_dx={need_dx}): {share:.3g} of its "
+                              f"1e-2 norm bound, or not finite")
+                        worst_d[name] = max(worst_d[name], share)
     torch.cuda.synchronize()
     print(f"K7 edges: {len(cases)} shapes x 2 dtypes x 2 activations against plain, worst error "
           f"as a share of its tolerance: " + ", ".join(f"{k} {w:.3g}" for k, w in worst.items()),
           flush=True)
+    print("K7 pass D alone (bf16, given the kernel's da2) against patch_encoder_bwd_stage1_plain, "
+          "worst norm error as a share of its 1e-2 bound: "
+          + ", ".join(f"{k} {w:.3g}" for k, w in worst_d.items()), flush=True)
 
     prm = pe_params(randn, 6, 128, 512, 512)
     x = randn(2, 1024 * 256, 6).to(torch.bfloat16)
@@ -703,6 +743,7 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
             if "passes" in case:  # K7's mma route: C, then D and the reduction by difference
                 c_ms, cd_ms = (time_ms(torch, fn) for fn in case["passes"])
                 row.update(ms_pass_c=c_ms, ms_pass_d=cd_ms - c_ms, ms_reduce=row["ms"] - cd_ms)
+                row["bound_ms_pass_d"] = bound(*case["pass_d_work"])[0]
             row["bound_ms"], row["bound_by"] = bound(*case["work"])
             del case
             torch.cuda.empty_cache()
@@ -710,7 +751,8 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
             if "ms_without_argmax" in row:
                 lib += f"  without the argmax outputs {row['ms_without_argmax']:.4f} ms"
             if "ms_pass_c" in row:
-                lib += (f"  pass C {row['ms_pass_c']:.4f} ms, pass D {row['ms_pass_d']:.4f} ms, "
+                lib += (f"  pass C {row['ms_pass_c']:.4f} ms, pass D {row['ms_pass_d']:.4f} ms "
+                        f"(its bound {row['bound_ms_pass_d']:.4f} ms), "
                         f"reduction and set-up {row['ms_reduce']:.4f} ms")
             print(f"kernel {name} {path} {key}: {row['launches']} launches, max_abs_err "
                   f"{err:.6g}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms{lib}  "
@@ -881,13 +923,15 @@ def resource_usage(lib) -> None:
     rows = []
     for mangled, reg, stack, local in found:
         m = re.search(r"\d+((?:attn_bwd|mha_kernel)\w*?)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
-        k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd(?:_c_mma|_d)?)?_kernel)"
-                       r"(?:I(f|13__nv_bfloat16)E)?", mangled)
+        k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd(?:_c_mma|_d_mma)?)?_kernel)"
+                       r"(?:I(f|13__nv_bfloat16|Li\d+E)E)?", mangled)
         if m:
             dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2] or "", "")
             rows.append(f"{m[1]}<{dtype}{m[3]}> {reg} reg, stack {stack} B, local {local} B")
         elif k2:
-            dtype = {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(k2[2] or "", "")
+            tiles = re.fullmatch(r"Li(\d+)E", k2[2] or "")
+            dtype = (f"<{tiles[1]}>" if tiles else
+                     {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(k2[2] or "", ""))
             rows.append(f"{k2[1]}{dtype} {reg} reg, stack {stack} B, local {local} B")
     print("resources (cuobjdump): "
           + ("; ".join(sorted(rows)) or "no attention, K2 or K7 kernel listed"), flush=True)
@@ -1161,7 +1205,7 @@ K6_STAGES = (("K6 attention bwd, query pass", ("attn_bwd_query",)),
 # K7 by kernel: pass C on the bf16 mma route, pass D apart, the slices'
 # reduction, and the one-launch kernel of the other shapes.
 TRAIN_STAGES = (("K7 pass C (mma)", ("patch_encoder_bwd_c_mma",)),
-                ("K7 pass D", ("patch_encoder_bwd_d_kernel",)),
+                ("K7 pass D (mma)", ("patch_encoder_bwd_d_mma",)),
                 ("K7 reduce_slices", ("reduce_slices",)),
                 ("K7 one launch", ("patch_encoder_bwd_kernel",)),
                 ("K2 patch encoder", ("patch_encoder",)), *K6_STAGES,
@@ -1468,7 +1512,8 @@ def main() -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=r["path"], shape=r["shape"]))
-        for extra in ("ms_without_argmax", "ms_pass_c", "ms_pass_d", "ms_reduce"):
+        for extra in ("ms_without_argmax", "ms_pass_c", "ms_pass_d", "bound_ms_pass_d",
+                      "ms_reduce"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

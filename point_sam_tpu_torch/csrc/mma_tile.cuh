@@ -1,5 +1,5 @@
 // Warp-tile building blocks over mma.cuh for the PointNet kernels (K2 in
-// patch_encoder.cu, K7's pass C in patch_encoder_bwd.cu): bf16 products
+// patch_encoder.cu, K7's passes C and D in patch_encoder_bwd.cu): bf16 products
 // whose weights and activations both sit in shared memory, fed to
 // mma.sync.m16n8k16 by ldmatrix, with fp32 accumulators in registers and
 // the epilogues applied on the C fragments.
@@ -107,13 +107,15 @@ __device__ __forceinline__ void mma_smem(float (&acc)[MT][NT][4], const __nv_bfl
   }
 }
 
-// acc += S[sk0 + 16 nk, sm0 + 16 MT]^T B[kb + 16 nk, bn0 + 16 np], both in
-// shared memory (S [k][m] row-major, its A-fragments by ldmatrix.trans);
-// otherwise as mma_smem.
+// acc += S[sk0 + 16 nk, sm0 + 16 mt]^T B[kb + 16 nk, bn0 + 16 np], both in
+// shared memory (S [k][m] row-major, its A-fragments by ldmatrix.trans); mt
+// <= MT row tiles (warp-uniform), the rest of acc untouched; otherwise as
+// mma_smem.
 template <int KU, int MT, int NT>
 __device__ __forceinline__ void mma_smem_tn(float (&acc)[MT][NT][4], const __nv_bfloat16* S,
                                             int lds, int sk0, int sm0, const __nv_bfloat16* B,
-                                            int ldb, int kb, int bn0, int nk, int np) {
+                                            int ldb, int kb, int bn0, int nk, int np,
+                                            int mt = MT) {
   const uint32_t a0 = at16_addr(S, lds, sk0, sm0), b0 = b16_addr(B, ldb, kb, bn0);
   for (int k0 = 0; k0 < nk; k0 += KU) {
 #pragma unroll
@@ -122,12 +124,58 @@ __device__ __forceinline__ void mma_smem_tn(float (&acc)[MT][NT][4], const __nv_
       if (ks < nk) {
         uint32_t a[MT][4];
 #pragma unroll
-        for (int m = 0; m < MT; ++m) ldmatrix_x4_trans(a[m], a0 + 32 * (ks * lds + m));
+        for (int m = 0; m < MT; ++m)
+          if (m < mt) ldmatrix_x4_trans(a[m], a0 + 32 * (ks * lds + m));
 #pragma unroll
         for (int jp = 0; jp < NT / 2; ++jp) {
           if (jp < np) {
             uint32_t b[4];
             ldmatrix_x4_trans(b, b0 + 32 * (ks * ldb + jp));
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              if (m >= mt) continue;
+              mma_bf16(acc[m][2 * jp], a[m], b[0], b[1]);
+              mma_bf16(acc[m][2 * jp + 1], a[m], b[2], b[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// This lane's shared-memory byte address for the B-fragments of B = W^T,
+// where W is [n][k] row-major (ldw elements a row), by ldmatrix without
+// .trans: the two n8 tiles of the 16 x 16 tile at (k0, n0) of B, b[0], b[1]
+// for columns n0.., b[2], b[3] for n0 + 8..; the tile at (k0 + 16 s, n0 +
+// 16 j) is 32 (s + j ldw) bytes further.
+__device__ __forceinline__ uint32_t bt16_addr(const __nv_bfloat16* W, int ldw, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  return smem_u32(W + (n0 + (lane & 7) + ((lane >> 4) & 1) * 8) * ldw + k0 +
+                  ((lane >> 3) & 1) * 8);
+}
+
+// acc += A[ar0 + 16 MT rows, ka + 16 nk] W[wn0 + 16 np, kw + 16 nk]^T, both
+// in shared memory (W [n][k] row-major, e.g. a weight whose transpose is
+// the product's B); otherwise as mma_smem.
+template <int KU, int MT, int NT>
+__device__ __forceinline__ void mma_smem_nt(float (&acc)[MT][NT][4], const __nv_bfloat16* A,
+                                            int lda, int ar0, int ka, const __nv_bfloat16* W,
+                                            int ldw, int kw, int wn0, int nk, int np) {
+  const uint32_t a0 = a16_addr(A, lda, ar0, ka), b0 = bt16_addr(W, ldw, kw, wn0);
+  for (int k0 = 0; k0 < nk; k0 += KU) {
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      const int ks = k0 + u;
+      if (ks < nk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) ldmatrix_x4(a[m], a0 + 32 * (m * lda + ks));
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          if (jp < np) {
+            uint32_t b[4];
+            ldmatrix_x4(b, b0 + 32 * (ks + jp * ldw));
 #pragma unroll
             for (int m = 0; m < MT; ++m) {
               mma_bf16(acc[m][2 * jp], a[m], b[0], b[1]);
@@ -168,6 +216,14 @@ __device__ __forceinline__ void mma_regs(float (&acc)[1][NT][4], const uint32_t 
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Sum over the 8 row groups g of a fragment column (lanes that share t4),
+// the same bits in all of them.
+__device__ __forceinline__ float rows_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
 // Max over the 8 row groups g of a fragment column (lanes that share t4).

@@ -44,12 +44,14 @@
 //   D: stage 1 without its second Dense -> the stage-1 backward, dx.
 // Two routes:
 // - bf16 with h0 <= 128 and h0, h1, C_out multiples of 16 (K2's mma gate),
-//   where the pass-C kernel's shared memory fits (K <= 256 at h(128, 512)):
-//   pass C on patch_encoder_bwd_c_mma_kernel (mma.sync.m16n8k16 on 64-row
-//   chunks, K2's stage 1 once per patch and cp.async weight ring; see the
-//   kernel's comment), then pass D on patch_encoder_bwd_d_kernel, a launch
-//   of its own over the same patches in the same order, then the reduction.
-//   Pass C is 82% of the work of the one-launch kernel at the train shapes.
+//   where the pass-C kernel's shared memory fits (K <= 256 at h(128, 512))
+//   and C_in <= 160 at h0 = 128 (pass D's dw1a in registers): pass C on
+//   patch_encoder_bwd_c_mma_kernel (mma.sync.m16n8k16 on 64-row chunks,
+//   K2's stage 1 once per patch and cp.async weight ring; see the kernel's
+//   comment), then pass D on patch_encoder_bwd_d_mma_kernel (mma.sync on
+//   64-row chunks, resident weights, dw1b and dw1a in registers for the
+//   block's life), a launch of its own over the same patches in the same
+//   order, then the reduction.
 // - otherwise (fp32, other widths, longer patches): both passes per patch
 //   in patch_encoder_bwd_kernel. Products: in bf16 with widths that are
 //   multiples of 16, every product with a wide operand runs on the tensor
@@ -60,7 +62,7 @@
 //   L2. The weight-gradient products (a^T b over the tile's rows) add their
 //   16x16 tiles straight into the block's workspace slice. The narrow
 //   products (C_in columns), the sparse max-pool ones and the fp32 path run
-//   as FMA loops. Pass D of the bf16 route is this kernel's pass D.
+//   as FMA loops.
 #include <mma.h>
 
 #include <algorithm>
@@ -576,20 +578,17 @@ __device__ __forceinline__ void pass_d(const Params<T>& p, int pi, float* sm, co
   }
 }
 
-// The block's vector-grad sums (vb1a .. vb2b) into its slice: stage 1's
-// (b1a, s1, t1, b1b) and / or stage 2's (b2a, s2, t2, b2b).
+// The block's vector-grad sums (vb1a .. vb2b) into its slice.
 __device__ __forceinline__ void add_vector_sums(float* work, const GradOffsets& O,
                                                 const float* sm, const Layout& L, int h0, int h1,
-                                                int cout, bool stage1, bool stage2) {
+                                                int cout) {
   __syncthreads();
-  if (stage1)
-    for (int i = threadIdx.x; i < h0; i += blockDim.x) {
-      work[O.b1a + i] += sm[L.vb1a + i];
-      work[O.s1 + i] += sm[L.vs1 + i];
-      work[O.t1 + i] += sm[L.vt1 + i];
-      work[O.b1b + i] += sm[L.vb1b + i];
-    }
-  if (!stage2) return;
+  for (int i = threadIdx.x; i < h0; i += blockDim.x) {
+    work[O.b1a + i] += sm[L.vb1a + i];
+    work[O.s1 + i] += sm[L.vs1 + i];
+    work[O.t1 + i] += sm[L.vt1 + i];
+    work[O.b1b + i] += sm[L.vb1b + i];
+  }
   for (int j = threadIdx.x; j < h1; j += blockDim.x) {
     work[O.b2a + j] += sm[L.vb2a + j];
     work[O.s2 + j] += sm[L.vs2 + j];
@@ -613,21 +612,7 @@ __global__ void __launch_bounds__(kThreads) patch_encoder_bwd_kernel(Params<T> p
     pass_c<T>(p, pi, sm, L, O, work);
     pass_d<T>(p, pi, sm, L, O, work);
   }
-  add_vector_sums(work, O, sm, L, p.h0, p.h1, p.cout, true, true);
-}
-
-// Pass D alone, after patch_encoder_bwd_c_mma_kernel has written da2: the
-// same blocks walk the same patches in the same order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) patch_encoder_bwd_d_kernel(Params<T> p) {
-  extern __shared__ __align__(128) float sm[];
-  const Layout L(p.cin, p.h0, p.h1, p.cout, p.K);
-  const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
-  float* work = p.work + (size_t)blockIdx.x * O.total;
-  for (int e = threadIdx.x; e < 4 * pad8(p.h0); e += blockDim.x)
-    sm[L.vb1a + e] = 0.0f;  // stage 1's vector-grad sums (vb1a .. vb1b)
-  for (int pi = blockIdx.x; pi < p.npatch; pi += gridDim.x) pass_d<T>(p, pi, sm, L, O, work);
-  add_vector_sums(work, O, sm, L, p.h0, p.h1, p.cout, true, false);
+  add_vector_sums(work, O, sm, L, p.h0, p.h1, p.cout);
 }
 
 // ------------------------------------------------- bf16 pass C on mma.sync
@@ -1288,6 +1273,406 @@ __global__ void __launch_bounds__(kMmaThreads, 1) patch_encoder_bwd_c_mma_kernel
   if (tid < cout) work[O.b2b + tid] += vb2b;
 }
 
+// ------------------------------------------------- bf16 pass D on mma.sync
+constexpr int kDTiles = 5;  // dw1a's 16 x 16 tiles a warp, at most (cin <= 160 at h0 = 128)
+
+// dw1a's 16 x 16 tiles: C_in padded to 16, by h0.
+__host__ __device__ inline int d_tiles(int cin, int h0) {
+  return round_up(cin, 16) / 16 * (h0 / 16);
+}
+
+// Shared-memory layout of the pass-D kernel in bytes, every buffer 128-byte
+// aligned: the fp32 da2 chunk (cp.async, one chunk ahead), the chunk's bf16
+// da2c, g1 and a1 (then da1 in its place) and x, the resident weights, the
+// per-column vectors, the row tiles' column sums and the exchange words of
+// their row sums.
+struct DLayout {
+  int cinp, stage, d2c, g1, a1, xs, w1a, w1bT, vec, vs, xch, total;
+  __host__ __device__ DLayout(int cin, int h0) {
+    cinp = round_up(cin, 16);
+    int off = 0;
+    auto take = [&](int bytes) {
+      const int at = off;
+      off += (bytes + 127) & ~127;
+      return at;
+    };
+    stage = take(kChunk * h0 * 4);
+    d2c = take(kChunk * (h0 + 8) * 2);
+    g1 = take(kChunk * (h0 + 8) * 2);
+    a1 = take(kChunk * (h0 + 8) * 2);
+    xs = take(kChunk * (cinp + 8) * 2);
+    w1a = take(cinp * (h0 + 8) * 2);
+    w1bT = take(h0 * (h0 + 8) * 2);
+    vec = take(3 * h0 * 4);
+    vs = take(4 * 3 * h0 * 4);
+    xch = take(4 * 3 * 4 * 16 * 2 * 4);
+    total = off;
+  }
+};
+
+// The sum over the four warps of a row tile (warps 4 rt .. 4 rt + 3, named
+// barrier 1 + rt) of values held per fragment row: v[h][k] is this warp's
+// quad-summed value k of row g + 8 h. Lane t4 = 0 writes them to the warp's
+// words of exchange slot x ([4 warps][16 rows][KV]); after the barrier every
+// warp adds the four in warp order, so all four get the same bits. Each
+// slot is used once a chunk, and block barriers separate the chunks.
+template <int KV>
+__device__ __forceinline__ void row_tile_sum(float (&v)[2][KV], float* x, int cq, int rt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  if ((lane & 3) == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < KV; ++k) x[(cq * 16 + g + 8 * h) * KV + k] = v[h][k];
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + rt) : "memory");
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int at = (g + 8 * h) * KV + k;
+      v[h][k] = x[at] + x[16 * KV + at] + x[32 * KV + at] + x[48 * KV + at];
+    }
+}
+
+// Pass D (the stage-1 backward) in bf16 on mma.sync.m16n8k16, after
+// patch_encoder_bwd_c_mma_kernel has written da2: one persistent block of 16
+// warps per SM walking the same patches in the same order, writing the same
+// slice. w1a (C_in padded to 16 rows) and w1b^T stay in shared memory for
+// the block's life. Per 64-row chunk:
+//  - da2 comes by 16-byte cp.async into an fp32 buffer, issued one chunk
+//    ahead (across patches); x by 4 scalar loads a thread in flight (rows of
+//    C_in = 131 are not 16-byte aligned). da2c = round(da2) goes to shared
+//    memory in bf16 and db1b += sum da2 in fp32 (a column a thread);
+//  - the row work: warp (rt, cq) owns rows 16 rt.. and columns 32 cq.. of
+//    the chunk. Stage 1's first Dense on mma_smem over the padded C_in,
+//    a1 = round(round(x w1a) + round(b1a)) on the fragments, LN statistics
+//    in fp32, two-pass, the row sums added over a quad then over the row
+//    tile's four warps (row_tile_sum), g1 = round(GELU(LN(a1) s1 + t1))
+//    with the affine in fp32 (the reference's _bwd_kernel recompute); a1
+//    (exact in bf16) and g1 to shared memory. dg1 = da2c w1b^T on the same
+//    fragments, GELU' from the fp32 LN output, the LN backward (its two row
+//    means through row_tile_sum), da1 rounded to bf16 in a1's place; the
+//    column sums ds1, dt1, db1a over the warp's rows by shuffles, added
+//    into the row tile's shared sums;
+//  - the products over the chunk's rows: dw1b += g1^T da2c, warp (rb, cb)
+//    owning rows 32 rb.. and columns 32 cb.. in its accumulators for the
+//    block's life (A-fragments of g1^T by ldmatrix.trans); dw1a += x^T da1,
+//    XT 16 x 16 tiles a warp, also in registers; dx = da1 w1a^T (B-fragments
+//    of w1a^T from w1a by ldmatrix), stored per chunk when asked for.
+// Three block barriers a chunk. At the block's end dw1b, dw1a and the four
+// vector sums (the row tiles' in order, db1b's threads in order) are
+// written to the slice once: no read-modify-write of device memory per
+// chunk or per patch, no atomics, the same bits from run to run.
+// Shared memory (DLayout) at C_in = 4 or 6, h0 = 128: 141,056 bytes (the da2
+// chunk 32 KB; da2c, g1, a1 51 KB; w1b^T 34 KB; x, w1a, vectors, sums and
+// exchange words 21 KB); at C_in = 131: 192,256 bytes. The gate admits
+// d_tiles(C_in, h0) <= 16 XT, XT = kDTiles: C_in <= 160 at h0 = 128.
+// Measured on the card (PERF.md): 128 registers, 8 B of stack at XT = 1 (the
+// train shapes), 128 B at XT = 5; 1.73-1.87 ms at [4, 1024 x 256, 4]
+// h(128, 512) -> 256 and 0.78-1.05 ms at [2, 1024 x 256, 6] -> 512, where the
+// 16-row WMMA pass D it replaces took 10.8-11.0 and 5.7-5.8 ms (its slice's
+// dw1b read-modify-write every 16 rows moved about 8.6 GB a launch by the
+// shapes); the
+// bound, the da2 read, is 0.16 / 0.08 ms.
+template <int XT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    patch_encoder_bwd_d_mma_kernel(Params<bf16> p) {
+  using namespace psam;
+  extern __shared__ __align__(128) float smem[];
+  unsigned char* const base = reinterpret_cast<unsigned char*>(smem);
+  const DLayout L(p.cin, p.h0);
+  const GradOffsets O(p.cin, p.h0, p.h1, p.cout);
+  const int K = p.K, cin = p.cin, cinp = L.cinp, h0 = p.h0;
+  const bool tanh_act = p.tanh_act != 0;
+  float* const stage = reinterpret_cast<float*>(base + L.stage);
+  bf16* const d2c = reinterpret_cast<bf16*>(base + L.d2c);
+  bf16* const g1s = reinterpret_cast<bf16*>(base + L.g1);
+  bf16* const a1s = reinterpret_cast<bf16*>(base + L.a1);
+  bf16* const xs = reinterpret_cast<bf16*>(base + L.xs);
+  bf16* const w1a = reinterpret_cast<bf16*>(base + L.w1a);
+  bf16* const w1bT = reinterpret_cast<bf16*>(base + L.w1bT);
+  float* const b1a = reinterpret_cast<float*>(base + L.vec);  // rounded to bf16
+  float* const s1 = b1a + h0;
+  float* const t1 = s1 + h0;
+  float* const vs = reinterpret_cast<float*>(base + L.vs);  // [row tile][ds1, dt1, db1a][h0]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int lda = h0 + 8, ldx = cinp + 8, npairs = h0 / 16;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  float* const work = p.work + (size_t)blockIdx.x * O.total;
+
+  // The block's chunks in order: patches s, s + nblocks, ..., each in 64-row
+  // chunks. Chunk q's da2 goes to the stage buffer, rows past K zero-filled.
+  const int nch = round_up(K, kChunk) / kChunk;
+  const int n_chunks = ((p.npatch - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * nch;
+  const int seg = h0 / 4;  // 16-byte segments a row
+  auto issue = [&](int q) {
+    if (q < n_chunks) {
+      const int pi = blockIdx.x + (q / nch) * gridDim.x, r0 = (q % nch) * kChunk;
+      const int nr = imin(kChunk, K - r0);
+      const float* const src = p.da2 + ((size_t)pi * K + r0) * h0;
+      for (int e = tid; e < kChunk * seg; e += kMmaThreads) {
+        const int r = e / seg, c = (e % seg) * 4;
+        cp_async16(smem_u32(stage + r * h0 + c), r < nr ? src + (size_t)r * h0 + c : src, r < nr);
+      }
+    }
+    cp_async_commit();
+  };
+
+  copy_tile_async(w1a, lda, p.w1a, h0, 0, cinp, cin, 0, h0, h0);
+  copy_tile_async(w1bT, lda, p.w1bT, h0, 0, h0, h0, 0, h0, h0);
+  cp_async_commit();
+  issue(0);
+  for (int i = tid; i < h0; i += kMmaThreads) {
+    b1a[i] = round_to<bf16>(p.b1a[i]);
+    s1[i] = p.s1[i];
+    t1[i] = p.t1[i];
+  }
+  for (int i = tid; i < kChunk * ldx; i += kMmaThreads) xs[i] = zero;  // columns cin.. stay zero
+  for (int i = tid; i < 4 * 3 * h0; i += kMmaThreads) vs[i] = 0.0f;
+
+  // Warp roles: the row work (rows 16 rt.., columns 32 cq.., np column
+  // pairs) and dw1b's tile (rows 32 rb.., columns 32 cb..; mtb row tiles and
+  // npb column pairs of it in range).
+  const int rt = warp >> 2, cq = warp & 3, rb = warp >> 2, cb = warp & 3;
+  const int wc = 32 * cq, np = imin(2, max(0, npairs - 2 * cq));
+  const int mtb = imin(2, max(0, npairs - 2 * rb)), npb = imin(2, max(0, npairs - 2 * cb));
+  float* const xr = reinterpret_cast<float*>(base + L.xch) + rt * 3 * 128;  // 3 slots
+  const int ta = d_tiles(cin, h0);
+  float accB[2][4][4], accA[XT][1][2][4];
+  zero_acc(accB);
+#pragma unroll
+  for (int i = 0; i < XT; ++i) zero_acc(accA[i]);
+  // db1b: this thread's column dcol over rows dq, dq + nq, ... of each chunk.
+  const int nq = kMmaThreads / h0, dcol = tid % h0, dq = tid / h0;
+  float vb1b = 0.0f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int q = 0; q < n_chunks; ++q) {
+    const int pi = blockIdx.x + (q / nch) * gridDim.x, r0 = (q % nch) * kChunk;
+    const int nr = imin(kChunk, K - r0);
+    // x -> xs (rows past K zero), then da2c = round(da2) and db1b.
+    const bf16* __restrict__ xc = p.x + ((size_t)pi * K + r0) * cin;
+    for (int e0 = tid; e0 < kChunk * cin; e0 += 4 * kMmaThreads) {
+      bf16 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * kMmaThreads;
+        v[u] = e < nr * cin ? xc[e] : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * kMmaThreads, r = e / cin;
+        if (e < kChunk * cin) xs[r * ldx + e - r * cin] = v[u];
+      }
+    }
+    if (dq < nq)
+      for (int r = dq; r < kChunk; r += nq) {
+        const float v = stage[r * h0 + dcol];
+        vb1b += v;
+        d2c[r * lda + dcol] = __float2bfloat16_rn(v);
+      }
+    __syncthreads();  // xs and da2c complete; the stage buffer is free
+    issue(q + 1);
+
+    // Stage 1: a1 = round(round(x w1a) + round(b1a)), its LN statistics.
+    float acc[1][4][4];
+    zero_acc(acc);
+    if (np > 0) mma_smem<1>(acc, xs, ldx, 16 * rt, 0, w1a, lda, 0, wc, cinp / 16, np);
+    float st[2][1] = {{0.0f}, {0.0f}}, mean[2], inv[2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= 2 * np) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float& v = acc[0][j][i];
+        v = round_to<bf16>(round_to<bf16>(v) + b1a[wc + 8 * j + 2 * t4 + (i & 1)]);
+        st[i >> 1][0] += v;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) st[h][0] = quad_sum(st[h][0]);
+    row_tile_sum<1>(st, xr, cq, rt);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = st[h][0] / h0;
+      st[h][0] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= 2 * np) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float d = acc[0][j][i] - mean[i >> 1];
+        st[i >> 1][0] += d * d;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) st[h][0] = quad_sum(st[h][0]);
+    row_tile_sum<1>(st, xr + 128, cq, rt);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(st[h][0] / h0 + 1e-5f);
+    // a1 (exact in bf16) and g1 = round(GELU(LN(a1) s1 + t1)) to shared memory.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= 2 * np) continue;
+      const int col = wc + 8 * j + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int at = (16 * rt + g + 8 * h) * lda + col;
+        const float v0 = acc[0][j][2 * h], v1 = acc[0][j][2 * h + 1];
+        *reinterpret_cast<__nv_bfloat162*>(a1s + at) = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(g1s + at) = __floats2bfloat162_rn(
+            act_fwd((v0 - mean[h]) * inv[h] * s1[col] + t1[col], tanh_act),
+            act_fwd((v1 - mean[h]) * inv[h] * s1[col + 1] + t1[col + 1], tanh_act));
+      }
+    }
+
+    // dg1 = da2c w1b^T; dl = dg1 GELU'(y); ds1 += dl xhat, dt1 += dl; the LN
+    // backward da1 = inv (dl s - mean(dl s) - xhat mean(dl s xhat)).
+    zero_acc(acc);
+    if (np > 0) mma_smem<4>(acc, d2c, lda, 16 * rt, 0, w1bT, lda, 0, wc, npairs, np);
+    float m[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, cs[2][4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      cs[0][j][0] = cs[0][j][1] = cs[1][j][0] = cs[1][j][1] = 0.0f;
+      if (j >= 2 * np) continue;
+      const int col = wc + 8 * j + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(a1s + (16 * rt + g + 8 * h) * lda + col));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float xh = ((e ? a.y : a.x) - mean[h]) * inv[h];
+          const float dl =
+              acc[0][j][2 * h + e] * act_grad(xh * s1[col + e] + t1[col + e], tanh_act);
+          cs[0][j][e] = fmaf(dl, xh, cs[0][j][e]);
+          cs[1][j][e] += dl;
+          const float d = dl * s1[col + e];
+          acc[0][j][2 * h + e] = d;
+          m[h][0] += d;
+          m[h][1] += d * xh;
+        }
+      }
+    }
+    float* const vrow = vs + rt * 3 * h0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = rows_sum(cs[k][j][e]);
+          if (g == 0 && j < 2 * np) vrow[k * h0 + wc + 8 * j + 2 * t4 + e] += v;
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h][0] = quad_sum(m[h][0]);
+      m[h][1] = quad_sum(m[h][1]);
+    }
+    row_tile_sum<2>(m, xr + 256, cq, rt);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float db[2] = {0.0f, 0.0f};
+      if (j < 2 * np) {
+        const int col = wc + 8 * j + 2 * t4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __nv_bfloat162* const at =
+              reinterpret_cast<__nv_bfloat162*>(a1s + (16 * rt + g + 8 * h) * lda + col);
+          const float2 a = __bfloat1622float2(*at);
+          float da[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float xh = ((e ? a.y : a.x) - mean[h]) * inv[h];
+            da[e] = inv[h] * (acc[0][j][2 * h + e] - m[h][0] / h0 - xh * (m[h][1] / h0));
+            db[e] += da[e];
+          }
+          *at = __floats2bfloat162_rn(da[0], da[1]);  // da1, rounded, in a1's place
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = rows_sum(db[e]);
+        if (g == 0 && j < 2 * np) vrow[2 * h0 + wc + 8 * j + 2 * t4 + e] += v;
+      }
+    }
+    __syncthreads();  // g1 and da1 complete
+
+    // dw1b += g1^T da2c, dw1a += x^T da1 over the chunk's rows (rows past K
+    // carry zero gradients); dx = da1 w1a^T.
+    if (mtb > 0 && npb > 0)
+      mma_smem_tn<4>(accB, g1s, lda, 0, 32 * rb, d2c, lda, 0, 32 * cb, kChunk / 16, npb, mtb);
+#pragma unroll
+    for (int i = 0; i < XT; ++i) {
+      const int t = warp + kMmaWarps * i;
+      if (t < ta)
+        mma_smem_tn<4>(accA[i], xs, ldx, 0, 16 * (t / npairs), a1s, lda, 0, 16 * (t % npairs),
+                       kChunk / 16, 1);
+    }
+    if (p.dx) {
+      bf16* const dxc = p.dx + ((size_t)pi * K + r0) * cin;
+      for (int t = warp; t < 4 * (cinp / 16); t += kMmaWarps) {
+        const int mr = t & 3, c0 = 16 * (t >> 2);
+        float ad[1][2][4];
+        zero_acc(ad);
+        mma_smem_nt<4>(ad, a1s, lda, 16 * mr, 0, w1a, lda, 0, c0, npairs, 1);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 16 * mr + g + 8 * (i >> 1), c = c0 + 8 * jj + 2 * t4 + (i & 1);
+            if (r < nr && c < cin) dxc[r * cin + c] = __float2bfloat16_rn(ad[0][jj][i]);
+          }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next chunk's da2 has landed; this chunk's buffers are free
+  }
+
+  // The block's grads into its slice, once.
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (mm < mtb && j < 2 * npb)
+          *reinterpret_cast<float2*>(work + O.w1b +
+                                     (size_t)(32 * rb + 16 * mm + g + 8 * h) * h0 + 32 * cb +
+                                     8 * j + 2 * t4) =
+              make_float2(accB[mm][j][2 * h], accB[mm][j][2 * h + 1]);
+#pragma unroll
+  for (int i = 0; i < XT; ++i) {
+    const int t = warp + kMmaWarps * i;
+    if (t >= ta) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * (t / npairs) + g + 8 * h;
+        if (r < cin)
+          *reinterpret_cast<float2*>(work + O.w1a + (size_t)r * h0 + 16 * (t % npairs) + 8 * j +
+                                     2 * t4) = make_float2(accA[i][0][j][2 * h],
+                                                           accA[i][0][j][2 * h + 1]);
+      }
+  }
+  if (dq < nq) stage[dq * h0 + dcol] = vb1b;  // free: the last chunk ended in a wait
+  __syncthreads();
+  for (int i = tid; i < h0; i += kMmaThreads) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = 0; r < 4; ++r)
+      for (int k = 0; k < 3; ++k) v[k] += vs[(r * 3 + k) * h0 + i];
+    for (int r = 0; r < nq; ++r) v[3] += stage[r * h0 + i];
+    work[O.s1 + i] = v[0];
+    work[O.t1 + i] = v[1];
+    work[O.b1a + i] = v[2];
+    work[O.b1b + i] = v[3];
+  }
+}
+
 // grads[e] = sum over the slices, in slice order, of work[s][e'] (e' = e
 // except in dw2b, which the slices hold transposed).
 __global__ void reduce_slices_kernel(const float* __restrict__ work, int nslices, GradOffsets O,
@@ -1322,17 +1707,19 @@ int smem_optin() {
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 // The bf16 route's gate: K2's mma gate (h0 <= 128, h0, h1 and C_out
-// multiples of 16) and the pass-C kernel's shared memory within the
-// device's limit (K <= 256 at h(128, 512)).
+// multiples of 16), the pass-C kernel's shared memory within the device's
+// limit (K <= 256 at h(128, 512)), and the pass-D kernel's: its dw1a tiles
+// in registers (C_in <= 160 at h0 = 128) and its shared memory.
 bool mma_route(int K, int cin, int h0, int h1, int cout, int dtype) {
   static const int limit = smem_optin();
   return dtype == 1 && h0 % 16 == 0 && h0 <= 8 * kNt1 && h1 % 16 == 0 && cout % 16 == 0 &&
-         CLayout(K, cin, h0, h1, cout).total <= limit;
+         CLayout(K, cin, h0, h1, cout).total <= limit &&
+         d_tiles(cin, h0) <= kDTiles * kMmaWarps && DLayout(cin, h0).total <= limit;
 }
 
 // Passes: bit 0 pass C, bit 1 pass D, bit 2 the slices' reduction. The bf16
 // mma route launches C (patch_encoder_bwd_c_mma_kernel) and D
-// (patch_encoder_bwd_d_kernel) apart, so that a caller may time them; every
+// (patch_encoder_bwd_d_mma_kernel) apart, so that a caller may time them; every
 // other shape runs both passes in patch_encoder_bwd_kernel and takes all
 // three bits. Each kernel's shared-memory limit is raised to the device's
 // maximum once per instantiation, at its first launch (the port runs on one
@@ -1363,10 +1750,20 @@ int run(const Params<T>& p, int nslices, float* grads, bool mma, int passes,
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
     if (passes & 2) {
-      static const cudaError_t attr = cudaFuncSetAttribute(
-          patch_encoder_bwd_d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-      if (attr != cudaSuccess) return (int)attr;
-      patch_encoder_bwd_d_kernel<T><<<nslices, kThreads, smem, stream>>>(p);
+      static const cudaError_t attr1 = cudaFuncSetAttribute(
+          patch_encoder_bwd_d_mma_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+      static const cudaError_t attr5 = cudaFuncSetAttribute(
+          patch_encoder_bwd_d_mma_kernel<kDTiles>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          limit);
+      if (attr1 != cudaSuccess) return (int)attr1;
+      if (attr5 != cudaSuccess) return (int)attr5;
+      if (!aligned16(p.w1a) || !aligned16(p.w1bT) || !aligned16(p.da2))
+        return (int)cudaErrorMisalignedAddress;
+      const DLayout D(p.cin, p.h0);
+      if (d_tiles(p.cin, p.h0) <= kMmaWarps)
+        patch_encoder_bwd_d_mma_kernel<1><<<nslices, kMmaThreads, D.total, stream>>>(p);
+      else
+        patch_encoder_bwd_d_mma_kernel<kDTiles><<<nslices, kMmaThreads, D.total, stream>>>(p);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
   } else {
@@ -1389,8 +1786,9 @@ extern "C" int psam_patch_encoder_bwd_slices(int npatch) {
 }
 
 // 1 when psam_patch_encoder_bwd takes the bf16 mma route at these sizes
-// (pass C on patch_encoder_bwd_c_mma_kernel, pass D on its own launch),
-// else 0 (both passes in patch_encoder_bwd_kernel).
+// (pass C on patch_encoder_bwd_c_mma_kernel, pass D on
+// patch_encoder_bwd_d_mma_kernel), else 0 (both passes in
+// patch_encoder_bwd_kernel).
 extern "C" int psam_patch_encoder_bwd_route(int K, int cin, int h0, int h1, int cout, int dtype) {
   return mma_route(K, cin, h0, h1, cout, dtype) ? 1 : 0;
 }
@@ -1404,8 +1802,9 @@ extern "C" int psam_patch_encoder_bwd_route(int K, int cin, int h0, int h1, int 
 // [B*G*K, h0]. work: fp32 [nslices, 12 grads], zeroed. grads: fp32, the 12
 // parameter grads flattened in order. h0, h1, cout <= 512. passes: 7 (C, D
 // and the reduction); on the mma route any subset, for timing them apart
-// (D reads the da2 that C wrote). On the mma route w1a, w1b, w2a and w2xT
-// are copied by 16-byte cp.async: their pointers must be 16-byte aligned,
+// (D reads the da2 that C wrote). On the mma route w1a, w1b, w2a, w1bT,
+// w2xT and da2 are copied by 16-byte cp.async: their pointers must be
+// 16-byte aligned,
 // as fresh torch allocations are, else the call returns
 // cudaErrorMisalignedAddress.
 extern "C" int psam_patch_encoder_bwd(const void* x, const void* dout, const void* pool,

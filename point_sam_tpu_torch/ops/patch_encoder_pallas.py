@@ -10,10 +10,11 @@ name so each module's counterpart is easy to find).
   returns, and the Function saves, both max-pools' first argmaxes;
 - backward: kernel K7 (``csrc/patch_encoder_bwd.cu``, replacing
   ``patch_encoder_fused_bwd``; in bf16 at K2's mma widths pass C runs on
-  mma.sync tiles and pass D as a launch of its own, see ``bwd_route``) on a
-  CUDA tensor,
+  mma.sync tiles and pass D, the stage-1 backward, as a launch of its own
+  on mma.sync tiles, see ``bwd_route``) on a CUDA tensor,
   ``patch_encoder_bwd_plain`` on a CPU tensor, both routing the max-pool
-  gradients to the saved rows.
+  gradients to the saved rows; ``patch_encoder_bwd_stage1_plain`` is pass
+  D's plain version alone, given da2.
 
 All follow the reference kernels' numerics: matmul operands in the compute
 dtype ``cdt`` with fp32 accumulation, the product rounded to ``cdt`` and
@@ -214,13 +215,11 @@ def patch_encoder_bwd_plain(grouped, params, dout, *, num_groups, group_size, cd
     """
     w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b = params
     B = grouped.shape[0]
-    x = grouped.reshape(B, num_groups, group_size, grouped.shape[-1]).to(cdt)
+    x = grouped.reshape(B, num_groups, group_size, grouped.shape[-1])
     h0 = w1a.shape[1]
     w2_pool, w2_pt = w2a[:h0], w2a[h0:]
     # Forward recompute.
-    a1 = _dense(x, w1a, b1a, cdt)
-    l1, m1, inv1 = _ln_stats(a1, s1, t1)
-    g1 = _act_and_grad(l1, act)[0].to(cdt)
+    g1 = _act_and_grad(_ln_stats(_dense(x, w1a, b1a, cdt), s1, t1)[0], act)[0].to(cdt)
     a2 = _dense(g1, w1b, b1b, cdt)
     if saved is None:
         pool, arg2 = a2.amax(2).to(cdt), a2.float().argmax(2)
@@ -247,16 +246,43 @@ def patch_encoder_bwd_plain(grouped, params, dout, *, num_groups, group_size, cd
     db2a = da3_32.sum((0, 1, 2))
     dpool = _mm(da3_sum, w2_pool.t(), cdt)
     da2 = _mm(da3, w2_pt.t(), cdt) + _maxpool_bwd(dpool, arg2, group_size)
+    dx, grads1 = patch_encoder_bwd_stage1_plain(x, params, da2, cdt=cdt, act=act)
+    return dx.reshape(grouped.shape), (*grads1, dw2a, db2a, ds2, dt2, dw2b, db2b)
+
+
+def patch_encoder_bwd_stage1_plain(x, params, da2, *, cdt, act: str = "erf",
+                                   need_dx: bool = True):
+    """The stage-1 backward of ``patch_encoder_bwd_plain`` (K7's pass D),
+    given the stage-1 output gradient: stage 1 recomputed as K2 computes
+    it, then the reference's ``_bwd_kernel`` chain from da2.
+
+    Args:
+        x: [..., C_in] grouped points, any leading shape; params: the 12
+            parameters of ``patch_encoder_plain`` (the first six are read);
+            da2: [..., h0] fp32, the gradient of stage 1's output a2 over the
+            same rows.
+
+    Returns:
+        (dx [..., C_in] in x's dtype, or None without ``need_dx``; (dw1a,
+        db1a, ds1, dt1, dw1b, db1b), fp32, summed over every row).
+    """
+    w1a, b1a, s1, t1, w1b, b1b = params[:6]
+    xc = x.to(cdt)
+    a1 = _dense(xc, w1a, b1a, cdt)
+    l1, m1, inv1 = _ln_stats(a1, s1, t1)
+    g1, dact1 = _act_and_grad(l1, act)
+    g1 = g1.to(cdt)
+    rows = tuple(range(da2.dim() - 1))
     da2c = da2.to(cdt)
     dw1b = _tn(g1, da2c)
-    db1b = da2.sum((0, 1, 2))
-    dl1 = _mm(da2c, w1b.t(), cdt) * _act_and_grad(l1, act)[1]
+    db1b = da2.sum(rows)
+    dl1 = _mm(da2c, w1b.t(), cdt) * dact1
     da1_32, ds1, dt1 = _ln_bwd(dl1, a1, m1, inv1, s1)
     da1 = da1_32.to(cdt)
-    dw1a = _tn(x, da1)
-    db1a = da1_32.sum((0, 1, 2))
-    dx = _mm(da1, w1a.t(), cdt).to(grouped.dtype).reshape(grouped.shape)
-    return dx, (dw1a, db1a, ds1, dt1, dw1b, db1b, dw2a, db2a, ds2, dt2, dw2b, db2b)
+    dw1a = _tn(xc, da1)
+    db1a = da1_32.sum(rows)
+    dx = _mm(da1, w1a.t(), cdt).to(x.dtype) if need_dx else None
+    return dx, (dw1a, db1a, ds1, dt1, dw1b, db1b)
 
 
 # K7's launches for ``passes``: pass C, pass D, and all three (C, D and the
@@ -266,19 +292,21 @@ BWD_PASS_C, BWD_PASS_D, BWD_ALL = 1, 2, 7
 
 def bwd_route(group_size, cin, h0, h1, cout, cdt) -> str:
     """K7's route at these sizes: "mma" (bf16 within K2's mma gate, where
-    the pass-C kernel's shared memory fits: pass C on mma.sync tiles, pass
-    D a launch of its own) or "single" (both passes in one launch)."""
+    the pass-C kernel's shared memory fits and C_in <= 160 at h0 = 128:
+    passes C and D on mma.sync tiles, each a launch of its own) or "single"
+    (both passes in one launch)."""
     ok = _cuda.library().psam_patch_encoder_bwd_route(group_size, cin, h0, h1, cout,
                                                        _cuda.dtype_code(cdt))
     return "mma" if ok else "single"
 
 
 def _bwd_launch(grouped, params, dout, *, num_groups, group_size, cdt, saved, act, need_dx,
-                passes=BWD_ALL):
+                passes=BWD_ALL, return_da2=False):
     """Launch K7's kernels (those of ``passes`` on the mma route, where a
     caller may time them apart; every pass on the single route). Returns
-    (dx or None, the 12 grads, the route); the grads are complete only when
-    every pass ran."""
+    (dx or None, the 12 grads, the route), and with ``return_da2`` also the
+    fp32 da2 workspace [B*G*K, h0] that pass C wrote and pass D read; the
+    grads are complete only when every pass ran."""
     w1a, b1a, s1, t1, w1b, b1b, w2a, b2a, s2, t2, w2b, b2b = params
     B, rows, cin = grouped.shape
     G, K = num_groups, group_size
@@ -322,7 +350,8 @@ def _bwd_launch(grouped, params, dout, *, num_groups, group_size, cdt, saved, ac
     dparams = tuple(g.view(p_.shape) for g, p_ in zip(grads.split(sizes), params))
     if dx is not None:
         dx = dx.to(grouped.dtype)
-    return dx, dparams, bwd_route(K, cin, h0, h1, cout, cdt)
+    route = bwd_route(K, cin, h0, h1, cout, cdt)
+    return (dx, dparams, route, da2) if return_da2 else (dx, dparams, route)
 
 
 @_cuda.counted

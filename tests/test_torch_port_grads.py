@@ -4,6 +4,9 @@
   ``mha_packed_bwd_pallas`` in interpret mode, and the ``MhaPacked``
   autograd Function against ``jax.vjp`` of ``mha_flat`` (the CPU path
   differentiates ``mha_reference``).
+- K7's pass D in plain torch (``patch_encoder_bwd_stage1_plain``), given
+  a seeded da2, against the JAX package's stage-1 backward (its helpers
+  as ``_bwd_kernel`` applies them), both activations, fp32 and bf16.
 - K7's plain backward (``patch_encoder_bwd_plain``) against the Pallas
   ``patch_encoder_fused_bwd`` in interpret mode, both activations, fp32 and
   bf16, and with forced ties (duplicate neighbour rows): the max-pool
@@ -320,6 +323,69 @@ def test_patch_encoder_fused_saves_argmaxes_only_for_grads(monkeypatch):
         assert len(saved) == 16 and saved[-1].dtype == torch.int32
     assert not torch.equal(first.grad_fn.saved_tensors[-3], second.grad_fn.saved_tensors[-3])
     assert torch.equal(out, first.detach())
+
+
+def jax_stage1_bwd(x, params, da2, jdt, act):
+    """The JAX package's stage-1 backward given da2: its module-level
+    helpers applied as ``_bwd_kernel`` applies them (the recompute, then the
+    chain from da2), on rows [R, C_in] and da2 [R, h0] fp32. Returns (dx in
+    x's dtype, (dw1a, db1a, ds1, dt1, dw1b, db1b))."""
+    w1a, b1a, s1, t1, w1b, b1b = (jnp.asarray(p) for p in params[:6])
+    x = jnp.asarray(x, jdt)
+    a1 = JPE._dense(x, w1a, b1a, jdt)
+    l1_32, m1, inv1 = JPE._ln_fwd_stats(a1, s1, t1)
+    if act == "tanh":  # _bwd_kernel's _act: the tanh GELU in fp32
+        u = jnp.float32(JPE._GELU_C0) * (
+            l1_32 + jnp.float32(JPE._GELU_C1) * l1_32 * l1_32 * l1_32)
+        g1 = (0.5 * l1_32 * (1.0 + jnp.tanh(u))).astype(jdt)
+        act_grad = JPE._gelu_grad_tanh_f32
+    else:
+        g1 = (l1_32 * 0.5 * (1.0 + JPE.erf_f32(l1_32 * JPE._SQRT_HALF))).astype(jdt)
+        act_grad = JPE._gelu_grad_f32
+    da2 = jnp.asarray(da2)
+    da2c = da2.astype(jdt)
+    tn, nt = (((0,), (0,)), ((), ())), (((1,), (1,)), ((), ()))
+    dw1b = JPE._dot_f32(g1, da2c, tn)
+    dg1 = JPE._dot_f32(da2c, w1b.astype(jdt), nt)
+    da1_32, ds1, dt1 = JPE._ln_bwd(dg1 * act_grad(l1_32), a1, m1, inv1, s1)
+    da1 = da1_32.astype(jdt)
+    dw1a = JPE._dot_f32(x, da1, tn)
+    dx = JPE._dot_f32(da1, w1a.astype(jdt), nt).astype(x.dtype)
+    return dx, (dw1a, jnp.sum(da1_32, axis=0), ds1[0], dt1[0], dw1b, jnp.sum(da2, axis=0))
+
+
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k7_stage1_bwd_plain_matches_jax(dtype, act):
+    """K7's pass D in plain torch (``patch_encoder_bwd_stage1_plain``), given
+    one seeded da2, against the JAX package's own stage-1 backward. fp32:
+    1e-5 of each output's largest entry (summation order). bf16: 1e-3 in
+    norm: torch.erf and the reference's erf polynomial, or two summation
+    orders, may round a recomputed g1 or da1 one bf16 ulp apart (2.2e-4 at
+    most over five seeds). Without ``need_dx`` the grads are the same bits
+    and dx is None."""
+    tdt, jdt = DTYPES[dtype]
+    rng = np.random.default_rng(0)
+    params = pe_params(rng, 6, 32, 64, 64)
+    x = rng.standard_normal((2, 8, 16, 6)).astype(np.float32)
+    da2 = (0.1 * rng.standard_normal((2, 8, 16, 32))).astype(np.float32)
+    wdx, wgrads = jax_stage1_bwd(x.reshape(-1, 6), params, da2.reshape(-1, 32), jdt, act)
+    xt, pt = torch.from_numpy(x).to(tdt), tuple(torch.from_numpy(p) for p in params)
+    kw = dict(cdt=tdt, act=act)
+    gdx, grads = PE.patch_encoder_bwd_stage1_plain(xt, pt, torch.from_numpy(da2), **kw)
+    assert gdx.dtype == tdt and gdx.shape == xt.shape
+    for g, w, p in zip(grads, wgrads, params):
+        assert g.dtype == torch.float32 and g.shape == p.shape
+    for g, w in zip((gdx.reshape(-1, 6), *grads), (wdx, *wgrads)):
+        if dtype == "float32":
+            assert_rel(g, w, 1e-5)
+        else:
+            assert np.linalg.norm(f32(g) - f32(w)) <= 1e-3 * np.linalg.norm(f32(w))
+    ndx, ngrads = PE.patch_encoder_bwd_stage1_plain(xt, pt, torch.from_numpy(da2), need_dx=False,
+                                                    **kw)
+    assert ndx is None
+    for a, b in zip(ngrads, grads):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------------------ K4

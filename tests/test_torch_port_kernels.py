@@ -18,7 +18,9 @@ kNN ids). K11 as K4. The backward
 kernels: K6 1e-5 (fp32) / 2e-2 (bf16) of the largest grad; K7 in fp32 1e-4
 of each grad's largest entry, in bf16 5e-2 in norm (||diff|| / ||plain||):
 both sides route the max-pool grads to the rows K2 saved, but K7
-recomputes the activations in another summation order. K2's argmax
+recomputes the activations in another summation order; K7's pass D alone,
+given the da2 the kernel wrote, 1e-2 in norm against its plain version
+(no routing or stage-2 recompute in play). K2's argmax
 outputs: in fp32 on integer-valued inputs the rows equal plain's; in bf16
 the plain value at each row lies within one ulp of its column's max.
 """
@@ -467,11 +469,13 @@ def pe_bwd_case(rng, device, dtype, G, K, cin, cout, ties=False, h0=128, h1=512)
 
 
 def k7_route(K, cin, h0, h1, cout, dtype):
-    """The route K7 should take: "mma" (bf16 pass C on mma.sync tiles, pass D
-    apart) at K2's mma widths where the pass-C kernel's shared memory fits
-    (K <= 256 at h(128, 512)), else "single" (one launch)."""
+    """The route K7 should take: "mma" (bf16 passes C and D on mma.sync
+    tiles, each a launch of its own) at K2's mma widths where the pass-C
+    kernel's shared memory fits (K <= 256 at h(128, 512)) and pass D's dw1a
+    tiles fit its registers (C_in <= 160 at h0 = 128), else "single" (one
+    launch)."""
     mma = (dtype == torch.bfloat16 and h0 % 16 == 0 and h0 <= 128 and h1 % 16 == 0
-           and cout % 16 == 0 and K <= 256)
+           and cout % 16 == 0 and K <= 256 and (cin + 15) // 16 * (h0 // 16) <= 80)
     return "mma" if mma else "single"
 
 
@@ -484,7 +488,8 @@ def k7_launch_route():
 # (G, K, C_in, C_out, h0, h1): the first three keep their old IDs; then the
 # bf16 mma route's shapes: the train shapes at K = 256 (-> 256, -> 512), a
 # ragged last 64-row chunk (K = 77), the hier level-2 (C_in = 131) and
-# level-1 widths at K = 32.
+# level-1 widths at K = 32, and h0 = 96 (pass D's row tiles use three of
+# their four column groups).
 K7_SHAPES = [pytest.param(8, 20, 6, 40, 128, 512, id="8-20-6-40"),
              pytest.param(4, 24, 4, 256, 128, 512, id="4-24-4-256"),
              pytest.param(6, 20, 6, 512, 128, 512, id="6-20-6-512"),
@@ -493,7 +498,8 @@ K7_SHAPES = [pytest.param(8, 20, 6, 40, 128, 512, id="8-20-6-40"),
              pytest.param(6, 77, 4, 256, 128, 512, id="ragged77"),
              pytest.param(8, 32, 131, 256, 128, 256, id="hier2"),
              pytest.param(16, 32, 4, 128, 64, 128, id="hier1-4"),
-             pytest.param(16, 32, 6, 128, 64, 128, id="hier1-6")]
+             pytest.param(16, 32, 6, 128, 64, 128, id="hier1-6"),
+             pytest.param(96, 64, 6, 128, 96, 256, id="h0-96")]
 
 
 @pytest.mark.cuda
@@ -525,6 +531,45 @@ def test_k7_kernel_matches_plain(cuda, dtype, act, G, K, cin, cout, h0, h1):
     assert ndx is None
     for a, b in zip(ndp, gdp):
         assert torch.equal(a, b)
+
+
+# (B, G, K, C_in, h0, h1, C_out): pass D on the mma route at the train
+# shapes, a ragged last chunk, the hier level-2 and level-1 widths, h0 = 96.
+K7_PASS_D_SHAPES = [pytest.param(2, 64, 256, 4, 128, 512, 256, id="train256"),
+                    pytest.param(2, 32, 256, 6, 128, 512, 512, id="train512"),
+                    pytest.param(2, 48, 77, 4, 128, 512, 256, id="ragged77"),
+                    pytest.param(2, 96, 32, 131, 128, 256, 256, id="hier2"),
+                    pytest.param(2, 160, 32, 6, 64, 128, 128, id="hier1"),
+                    pytest.param(2, 96, 64, 6, 96, 256, 128, id="h0-96")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dx", [True, False], ids=["dx", "no-dx"])
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+@pytest.mark.parametrize("B,G,K,cin,h0,h1,cout", K7_PASS_D_SHAPES)
+def test_k7_pass_d_matches_plain_given_da2(cuda, B, G, K, cin, h0, h1, cout, act, need_dx):
+    """Pass D alone: the kernel's stage-1 grads (and dx) against
+    ``patch_encoder_bwd_stage1_plain`` given the da2 that pass C wrote and
+    pass D read, each within 1e-2 in norm (one-ulp flips of the recomputed
+    a1, g1 or da1 where the two sum in other orders; no max-pool routing
+    or stage-2 recompute is in play, so the bound is five times K7's)."""
+    rng = np.random.default_rng(17)
+    params = to(pe_params(rng, cin, h0, h1, cout), cuda)
+    x = to(rng.standard_normal((B, G * K, cin)).astype(np.float32), cuda, torch.bfloat16)
+    do = to(rng.standard_normal((B, G, cout)).astype(np.float32), cuda, torch.bfloat16)
+    kw = dict(num_groups=G, group_size=K, cdt=torch.bfloat16, act=act)
+    _, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+    dx, grads, route, da2 = PE._bwd_launch(x, params, do, saved=saved, need_dx=need_dx,
+                                           return_da2=True, **kw)
+    assert route == "mma" and da2.shape == (B * G * K, h0)
+    wdx, wgrads = PE.patch_encoder_bwd_stage1_plain(x.reshape(-1, cin), params, da2,
+                                                    cdt=torch.bfloat16, act=act, need_dx=need_dx)
+    torch.cuda.synchronize()
+    assert (dx is None) == (not need_dx)
+    pairs = list(zip(grads[:6], wgrads)) + ([(dx.reshape(-1, cin), wdx)] if need_dx else [])
+    for g_, w_ in pairs:
+        assert g_.shape == w_.shape
+        assert_norm(g_, w_, 1e-2)
 
 
 @pytest.mark.cuda
