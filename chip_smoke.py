@@ -8,11 +8,13 @@ last line):
 
 1. header: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build: compile the kernels from point_sam_tpu_torch/csrc (one nvcc per
-   source, all started together), then print the attention, K2 and K7
+   source, all started together), then print the attention, K2, K7 and FPS
    kernels' registers and stack (spill) bytes from ``cuobjdump
    --dump-resource-usage`` of the built library (reported, not gated; K7's
    four: the pass-C mma kernel, the pass-D mma kernel at both of its dw1a
-   register tilings, and the one-launch kernel);
+   register tilings, and the one-launch kernel; FPS: the cluster route's
+   selection kernel for K8 and K1, K1's 3-NN kernel, and the grid route's
+   cooperative kernel in its three modes);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
    so the decoder tail takes K4): the Predictor on the CPU (plain versions)
    and on the card (kernels), same weights, cloud and 3 clicks;
@@ -25,7 +27,10 @@ last line):
    every shape and dtype that path launched it with, on seeded inputs, both
    timed with CUDA events (median after a warm-up), with the one PyTorch
    call of the same function as a yardstick where there is one (SDPA for
-   K3 and K5; the port never calls it);
+   K3 and K5; the port never calls it); K1 and K8 (everywhere they run)
+   also on the grid route where the path took the cluster route
+   (``fps_route``), held to the same plain outputs, timed, and both
+   printed as microseconds a selection step;
 5b. K3 and K5 at their edges against their plain versions, fp32 and bf16:
    ragged S (77, 200, 2049) at every padded head size (dh 32, 64, 88,
    128), grids wider than one wave, large logits at the serve and voronoi
@@ -101,7 +106,10 @@ last line):
    both groupings, fused-geometry ViT-L) on its model built anew, then 20
    calls of K6 and 20 of SDPA's backward at the train shape. They come last, after
    every timed phase, because a profiler session slows the host's
-   launches for the rest of the process.
+   launches for the rest of the process. Every launch that K1-K3, K5, K8,
+   K9 and K10 count in a profiled step or encode must show in its trace (a
+   session that lost one is retaken, at most 3 in all), and each profiled
+   encode's geometry must equal its warm-up's bit for bit.
 
 Every kernel's bound (bound_ms) is computed here from this run's shapes:
 the larger of bytes / 3.35 TB/s and the operations over the card's peak
@@ -326,18 +334,29 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
             return 0.0
         return compare
 
-    if name == "K1":
+    if name in ("K1", "K8"):
         B, N, G = key["B"], key["N"], key["G"]
         pts, valid, n_real = cloud(B, N, key["valid"])
-
+        interp = name == "K1"
+        # The route the path took (fps_route) and, where the row fits a
+        # cluster, the grid route on the same inputs: both checked, both
+        # timed (``other``).
+        other = ({"other": lambda: F._launch(pts, G, valid, "grid", interp),
+                  "other_route": "grid"} if F.fps_route(N) == "cluster" else {})
         # ~10 fp32 operations per real point per selection step (distance,
-        # min, the running argmax and best-3); the G sequential steps each
-        # end in a grid-wide sync, a latency floor the roofline does not see.
-        nbytes = B * (N * (3 * 4 + (valid is not None)) + G * 16 + N * 3 * 8)
-        return dict(run=lambda: F.fps_interp_cuda(pts, G, valid=valid),
-                    plain=lambda: F.fps_interp_plain(pts, G, valid=valid),
-                    compare=exact("K1", ("idx", "centers", "interp_idx", "interp_d2")),
-                    work=(nbytes, {"fp32": 10.0 * B * n_real * G}))
+        # min, the running argmax; K1 also the best-3); the G sequential
+        # steps each end in a barrier across the row's blocks, a latency
+        # floor the roofline does not see.
+        if interp:
+            nbytes = B * (N * (3 * 4 + (valid is not None)) + G * 16 + N * 3 * 8)
+            return dict(run=lambda: F.fps_interp_cuda(pts, G, valid=valid),
+                        plain=lambda: F.fps_interp_plain(pts, G, valid=valid),
+                        compare=exact("K1", ("idx", "centers", "interp_idx", "interp_d2")),
+                        work=(nbytes, {"fp32": 10.0 * B * n_real * G}), steps=G - 1, **other)
+        nbytes = B * (N * (3 * 4 + (valid is not None)) + G * 4)
+        return dict(run=lambda: F.fps_cuda(pts, G, valid=valid),
+                    plain=lambda: F.fps_plain(pts, G, valid=valid), compare=exact("K8", ("idx",)),
+                    work=(nbytes, {"fp32": 10.0 * B * n_real * G}), steps=G - 1, **other)
 
     if name == "K9":
         B, N, G, k = key["B"], key["N"], key["G"], key["k"]
@@ -364,16 +383,6 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
         return dict(run=lambda: F.fps_interp_knn_cuda(pts, G, k, valid=valid),
                     plain=lambda: F.fps_interp_knn_plain(pts, G, k, valid=valid),
                     compare=equal_and_recall, work=(nbytes, {"fp32": 13.0 * B * n_real * G}))
-
-    if name == "K8":
-        B, N, G = key["B"], key["N"], key["G"]
-        pts, valid, n_real = cloud(B, N, key["valid"])
-        # ~10 fp32 operations per real point per step (distance, min, the
-        # running argmax), below the same sync floor as K1.
-        nbytes = B * (N * (3 * 4 + (valid is not None)) + G * 4)
-        return dict(run=lambda: F.fps_cuda(pts, G, valid=valid),
-                    plain=lambda: F.fps_plain(pts, G, valid=valid), compare=exact("K8", ("idx",)),
-                    work=(nbytes, {"fp32": 10.0 * B * n_real * G}))
 
     if name == "K10":
         B, N, G = key["B"], key["N"], key["G"]
@@ -731,7 +740,11 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
         varying = [f for f in keys[0] if len({str(k[f]) for k in keys}) > 1] if keys else []
         for key_t, key in zip(shapes, keys):
             case = kernel_case(torch, np, mods, name, key, g)
-            err = case["compare"](case["run"](), case["plain"]())
+            want = case["plain"]()
+            err = case["compare"](case["run"](), want)
+            if "other" in case:  # K1 / K8 on the route the path did not take
+                case["compare"](case["other"](), want)
+            del want
             torch.cuda.empty_cache()
             row = dict(kernel=name, path=path, shape=key, launches=shapes[key_t],
                        variant=",".join(f"{f}={key[f]}" for f in varying), max_abs_err=err,
@@ -740,6 +753,13 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
                        library_ms=time_ms(torch, case["library"]) if "library" in case else None)
             if "without" in case:
                 row["ms_without_argmax"] = time_ms(torch, case["without"])
+            if "steps" in case:  # K1 / K8: per selection step, on both routes
+                steps = max(1, case["steps"])
+                row.update(fps_route=key["route"], us_per_step=row["ms"] * 1e3 / steps)
+                if "other" in case:
+                    row.update(other_route=case["other_route"],
+                               ms_other_route=time_ms(torch, case["other"]))
+                    row["us_per_step_other_route"] = row["ms_other_route"] * 1e3 / steps
             if "passes" in case:  # K7's mma route: C, then D and the reduction by difference
                 c_ms, cd_ms = (time_ms(torch, fn) for fn in case["passes"])
                 row.update(ms_pass_c=c_ms, ms_pass_d=cd_ms - c_ms, ms_reduce=row["ms"] - cd_ms)
@@ -750,6 +770,11 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
             lib = "" if row["library_ms"] is None else f"  library {row['library_ms']:.4f} ms"
             if "ms_without_argmax" in row:
                 lib += f"  without the argmax outputs {row['ms_without_argmax']:.4f} ms"
+            if "fps_route" in row:
+                lib += f"  route {row['fps_route']}, {row['us_per_step']:.4f} us a selection step"
+                if "ms_other_route" in row:
+                    lib += (f"; {row['other_route']} route {row['ms_other_route']:.4f} ms, "
+                            f"{row['us_per_step_other_route']:.4f} us a step")
             if "ms_pass_c" in row:
                 lib += (f"  pass C {row['ms_pass_c']:.4f} ms, pass D {row['ms_pass_d']:.4f} ms "
                         f"(its bound {row['bound_ms_pass_d']:.4f} ms), "
@@ -908,8 +933,9 @@ def attention_bwd_edges(torch, A) -> None:
 
 
 def resource_usage(lib) -> None:
-    """Registers, stack and local bytes (spills) of each attention kernel and
-    each K2 and K7 kernel in the built library, from ``cuobjdump
+    """Registers, stack and local bytes (spills) of each attention kernel,
+    each K2 and K7 kernel and each FPS kernel (both routes of K1 / K8, and
+    K9) in the built library, from ``cuobjdump
     --dump-resource-usage``. Reported only: a missing tool or an unknown
     format prints a note and gates nothing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -925,7 +951,13 @@ def resource_usage(lib) -> None:
         m = re.search(r"\d+((?:attn_bwd|mha_kernel)\w*?)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
         k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd(?:_c_mma|_d_mma)?)?_kernel)"
                        r"(?:I(f|13__nv_bfloat16|Li\d+E)E)?", mangled)
-        if m:
+        fk = re.search(r"\d+(fps_(?:interp|cluster|nn3)_kernel)(?:I((?:L[bi]\d+E)+)E)?", mangled)
+        if fk:
+            args = ", ".join({"b0": "false", "b1": "true"}.get(k + v, v)
+                             for k, v in re.findall(r"L([bi])(\d+)E", fk[2] or ""))
+            rows.append(f"{fk[1]}{f'<{args}>' if args else ''} {reg} reg, stack {stack} B, "
+                        f"local {local} B")
+        elif m:
             dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2] or "", "")
             rows.append(f"{m[1]}<{dtype}{m[3]}> {reg} reg, stack {stack} B, local {local} B")
         elif k2:
@@ -934,7 +966,7 @@ def resource_usage(lib) -> None:
                      {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(k2[2] or "", ""))
             rows.append(f"{k2[1]}{dtype} {reg} reg, stack {stack} B, local {local} B")
     print("resources (cuobjdump): "
-          + ("; ".join(sorted(rows)) or "no attention, K2 or K7 kernel listed"), flush=True)
+          + ("; ".join(sorted(rows)) or "no attention, K2, K7 or FPS kernel listed"), flush=True)
 
 
 def clicks(pred, xyz):
@@ -1078,18 +1110,33 @@ def tail_routes(torch, UP, pred, counters) -> None:
               f"{gather_ms:.4f} ms), max_abs_err {err:.6g}", flush=True)
 
 
-def profile_encode(torch, np, model, label, **override):
+def tensors(tree) -> list:
+    """The tensors of nested dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors(v)]
+    return [tree] if hasattr(tree, "is_cuda") else []
+
+
+def profile_encode(torch, np, model, label, counters, **override):
     """Phase 16: one encode of a serving path (with ``override`` of its
-    grouping) under torch.profiler, on a model built anew (the timed phases
-    keep none alive)."""
+    grouping) under torch.profiler (``profile``), on a model built anew (the
+    timed phases keep none alive)."""
     from point_sam_tpu_torch.serving import Predictor
 
     pred = Predictor(model)
     xyz, rgb = synthetic_cloud(np.random.default_rng(0), N_FLAGSHIP)
     pred.set_pointcloud(xyz, rgb, **override)  # warm-up
+    warm = tensors(pred._state["geom"])
     profile(torch, f"{label} encode", lambda: pred.set_pointcloud(xyz, rgb, **override),
-            ENCODE_STAGES)
-    del pred
+            ENCODE_STAGES, counters)
+    # The geometry (the FPS picks and all that follows from them) of the
+    # profiled encode, bit-equal to the warm-up's: the traced launches ran.
+    got = tensors(pred._state["geom"])
+    check(len(got) == len(warm) and all(torch.equal(a, b) for a, b in zip(got, warm)),
+          f"{label} encode: the profiled encode's geometry differs from the warm-up's")
+    del pred, warm, got
     torch.cuda.empty_cache()
 
 
@@ -1210,42 +1257,69 @@ TRAIN_STAGES = (("K7 pass C (mma)", ("patch_encoder_bwd_c_mma",)),
                 ("K7 one launch", ("patch_encoder_bwd_kernel",)),
                 ("K2 patch encoder", ("patch_encoder",)), *K6_STAGES,
                 ("K3 attention", ("mha_kernel",)), ("K4 / K11 decode tail", ("interp_upscale",)),
-                ("K1 FPS + 3-NN", ("fps_interp",)), MATMULS)
-# fps_interp_kernel<0> is K8, <1> K1, <2> K9 (the template mode of
-# csrc/fps_interp.cu).
-ENCODE_STAGES = (("K1 FPS + 3-NN", ("fps_interp_kernel<1>",)),
-                 ("K8 FPS", ("fps_interp_kernel<0>",)),
+                ("K1 FPS + 3-NN", ("fps_interp", "fps_cluster", "fps_nn3")), MATMULS)
+# csrc/fps_interp.cu: on the grid route fps_interp_kernel<0> is K8, <1> K1,
+# <2> K9 (its template mode); on the cluster route fps_cluster_kernel<false,
+# R> is K8, and <true, R> with fps_nn3_kernel (the 3-NN launch) K1.
+ENCODE_STAGES = (("K1 FPS + 3-NN",
+                  ("fps_interp_kernel<1>", "fps_cluster_kernel<true", "fps_nn3_kernel")),
+                 ("K8 FPS", ("fps_interp_kernel<0>", "fps_cluster_kernel<false")),
                  ("K9 FPS + 3-NN + kNN bins", ("fps_interp_kernel<2>",)),
                  ("K10 3-NN weights", ("interp_kernel",)), ("K2 patch encoder", ("patch_encoder",)),
                  ("K3 / K5 attention", ("mha_kernel",)),
                  ("torch top-k / sort (exact kNN, K9's bins)", ("topk", "TopK", "sort", "Sort")),
                  ("torch scatter / gather (scatter max, gathers)", ("scatter",)), MATMULS)
+# Stage -> the kernel wrappers (launch counters) each of whose launches
+# runs at least one kernel of the stage.
+STAGE_WRAPPERS = {"K1 FPS + 3-NN": ("K1",), "K8 FPS": ("K8",),
+                  "K9 FPS + 3-NN + kNN bins": ("K9",), "K10 3-NN weights": ("K10",),
+                  "K2 patch encoder": ("K2",), "K3 / K5 attention": ("K3", "K5"),
+                  "K3 attention": ("K3",)}
 
 
-def profile(torch, label, fn, stages):
-    """``fn`` once under torch.profiler: device time by stage (kernel
-    names), the largest other kernels, and the device's busy share of the
-    wall time."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
+def profile(torch, label, fn, stages, counters=None, tries=3):
+    """``fn`` under torch.profiler: device time by stage (kernel names), the
+    largest other kernels, and the device's busy share of the wall time.
+    With ``counters``, every launch that a stage's wrappers
+    (``STAGE_WRAPPERS``) count during ``fn`` must show a kernel of that
+    stage in the trace: a trace that lost one is reported and taken again,
+    up to ``tries`` sessions in all, and then the check fails."""
+    for attempt in range(1, tries + 1):
+        before = {k: c.launches for k, c in (counters or {}).items()}
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by_stage = {name: 0.0 for name, _ in stages}
-    by_stage["other kernels"] = 0.0
-    others = []
-    total = 0.0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or dev_us <= 0:
-            continue
-        total += dev_us / 1e3
-        stage = next((n for n, keys in stages if any(k in ev.key for k in keys)), "other kernels")
-        by_stage[stage] += dev_us / 1e3
-        if stage == "other kernels":
-            others.append((dev_us / 1e3, ev.count, ev.key[:60]))
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        by_stage = {name: 0.0 for name, _ in stages}
+        by_stage["other kernels"] = 0.0
+        events = dict.fromkeys(by_stage, 0)
+        others = []
+        total = 0.0
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", 0) or 0
+            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or dev_us <= 0:
+                continue
+            total += dev_us / 1e3
+            stage = next((n for n, keys in stages if any(k in ev.key for k in keys)),
+                         "other kernels")
+            by_stage[stage] += dev_us / 1e3
+            events[stage] += ev.count
+            if stage == "other kernels":
+                others.append((dev_us / 1e3, ev.count, ev.key[:60]))
+        lost = []
+        for name in by_stage:
+            wrappers = STAGE_WRAPPERS.get(name, ()) if counters else ()
+            launched = sum(counters[k].launches - before[k] for k in wrappers)
+            if events[name] < launched:
+                lost.append(f"{name}: {events[name]} kernels traced for {launched} launches")
+        if not lost:
+            break
+        print(f"{label} profile, session {attempt} of {tries}: the trace lost launches "
+              f"({'; '.join(lost)})", flush=True)
+    check(not lost, f"{label} profile: the trace lost launches in {tries} sessions")
     split = ", ".join(f"{k} {v:.3f}" for k, v in by_stage.items())
     top = "; ".join(f"{ms:.3f} ms x{n} {name}" for ms, n, name in sorted(others, reverse=True)[:6])
     print(f"{label} profile (ms of device time): {split}; total {total:.3f} ms over "
@@ -1273,7 +1347,7 @@ def profile_attention_bwd(torch, A, calls=20):
                 lambda f=fn: [f() for _ in range(calls)], K6_STAGES)
 
 
-def profile_step(torch, result, cfg, seed):
+def profile_step(torch, result, cfg, seed, counters):
     """One more ViT-L train step under torch.profiler (``profile``), with
     the step on that batch timed (host clock to the loss's sync, median of
     4) before and after the profiler session."""
@@ -1298,7 +1372,7 @@ def profile_step(torch, result, cfg, seed):
 
     step()  # warm
     before = step_ms()
-    profile(torch, "train step", step, TRAIN_STAGES)
+    profile(torch, "train step", step, TRAIN_STAGES, counters)
     print(f"train step on one batch: {before:.3f} ms before the profiler session, "
           f"{step_ms():.3f} ms after it (median of 4)", flush=True)
 
@@ -1343,7 +1417,7 @@ def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
           f"{[round(h['loss'], 4) for h in hist]}, step {step_ms:.3f} ms (median of steps "
           f"2-{steps}; first {hist[0]['ms']:.1f} ms), peak memory {peak / 2**30:.3f} GiB, "
           f"launches per step {per_step}", flush=True)
-    return shapes, lambda: profile_step(torch, result, cfg, seed)
+    return shapes, lambda: profile_step(torch, result, cfg, seed, counters)
 
 
 def main() -> int:
@@ -1479,11 +1553,12 @@ def main() -> int:
     attention_bwd_edges(torch, A)
 
     train_profile()
-    profile_encode(torch, np, vit_l(), "flagship ViT-L")
-    profile_encode(torch, np, giant(), "voronoi EVA-giant")
-    profile_encode(torch, np, hier(), "hier EVA02-L")
-    profile_encode(torch, np, hier(), "hier EVA02-L, group_number=4096", group_number=4096)
-    profile_encode(torch, np, vit_l("approx"), "fused-geometry ViT-L")
+    profile_encode(torch, np, vit_l(), "flagship ViT-L", counters)
+    profile_encode(torch, np, giant(), "voronoi EVA-giant", counters)
+    profile_encode(torch, np, hier(), "hier EVA02-L", counters)
+    profile_encode(torch, np, hier(), "hier EVA02-L, group_number=4096", counters,
+                   group_number=4096)
+    profile_encode(torch, np, vit_l("approx"), "fused-geometry ViT-L", counters)
     profile_attention_bwd(torch, A)
 
     meta = {
@@ -1513,7 +1588,8 @@ def main() -> int:
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=r["path"], shape=r["shape"]))
         for extra in ("ms_without_argmax", "ms_pass_c", "ms_pass_d", "bound_ms_pass_d",
-                      "ms_reduce"):
+                      "ms_reduce", "fps_route", "us_per_step", "other_route", "ms_other_route",
+                      "us_per_step_other_route"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -15,24 +15,55 @@
 // +inf. cd / ci [B, G, 8 * l_lanes] receive each step's bins; the top-k
 // over them is the caller's (as in the JAX wrapper).
 //
-// Per batch row: G sequential selection steps from the first valid point (padding at -inf, max value wins, the smallest index
-// wins ties), the selected centres, and for every point its 3 nearest
-// selected centres (running best-3 over the distance fields the selection
-// loop computes anyway; strict < so equal distances keep the earlier slot).
+// Per batch row: G sequential selection steps from the first valid point
+// (padding at -inf, max value wins, the smallest index wins ties), the
+// selected centres, and for every point its 3 nearest selected centres
+// (strict < over the centres in order, so equal distances keep the earlier
+// slot).
 //
 // What bounds it on the H100: the G steps are sequential, and each needs a
-// global argmax over N points, so the kernel is latency-bound (one grid-wide
-// barrier per step), not bandwidth-bound: 131072 points x 40 B of state fit
-// in the shared memory of the 132 SMs.
-// Design: one cooperative launch over point chunks. Each block keeps its
-// chunk's xyz, running min-distance and best-3 in shared memory for the
-// whole loop; every step is a block-local (max, smallest index) reduction,
-// one grid.sync(), and a deterministic reduction of the per-block
-// candidates that every block does for itself. The loop runs G distance
-// passes, so the last centre's distances also reach the best-3. A row's
-// points must fit the shared memory of the co-resident blocks (40 B each:
-// about 765k points per row on an H100 at B=1); beyond that the launch is
-// refused and the wrapper raises. K8 fits about 1.9M points per row.
+// global argmax over N points, so the loop is latency-bound (one barrier
+// and one cross-block exchange per step), not bandwidth-bound: a step's
+// arithmetic is ~10 instructions a point. Two routes, chosen by the
+// caller from N alone (ops/fps.py::fps_route):
+//
+// "cluster" (K1 and K8 for rows of up to kClusterPoints = 131072 points):
+// fps_cluster_kernel, one thread-block cluster of C CTAs x 256 threads a
+// row. One CTA where its registers hold the row (N <= 8192): no exchange
+// between CTAs. Else the row spreads over 16 CTAs (the non-portable
+// cluster size; a card that refuses it makes the launch fail): a step's
+// arithmetic shrinks with the points a CTA holds, while the exchange
+// costs about the same from 2 to 16 CTAs. Each thread holds up to 32
+// points' xyz and running min distance in registers for the whole loop;
+// no step reads device memory. Ranks, warps, lanes and a thread's slots
+// hold increasing index ranges, so at every level a tie goes to the first
+// holder, which holds the smallest index: a pick is one redux.sync max of
+// order_key and one ballot, no index reduction. A step: each thread's running argmax over
+// its points; the warp's pick; one slot a warp in shared memory;
+// __syncthreads; the CTA's pick over its warps' slots. With C > 1, warp
+// 0's first C lanes store the CTA's candidate (key, xyz: 16 B) into slot
+// [rank] of every CTA of the cluster with st.async, which counts the bytes
+// on that CTA's mbarrier; every warp waits on its own CTA's mbarrier for
+// the C slots and picks among them, and the winning CTA writes the index.
+// No cluster-wide barrier runs inside the loop: slots and mbarriers are
+// double-buffered by step parity, and a CTA cannot run two steps ahead of
+// a peer, since each step needs every peer's candidate of the step
+// before. K1's 3-NN then runs as a second launch over all SMs,
+// fps_nn3_kernel: one thread a point, the G centres through shared memory
+// in order, the same d^2 and strict-< insertion as the fused loop, so
+// interp_idx / interp_d2 are bit-equal to it.
+//
+// "grid" (larger rows, e.g. the 524288 bucket; and K9 always):
+// fps_interp_kernel, one cooperative launch over point chunks. Each block
+// keeps its chunk's xyz, running min distance and (K1, K9) best-3 in shared
+// memory for the whole loop; every step is a block-local (max, smallest
+// index) reduction, one grid.sync(), and a deterministic reduction of the
+// per-block candidates that every block does for itself. The loop runs G
+// distance passes, so the last centre's distances also reach the best-3.
+// A row's points must fit the shared memory of the co-resident blocks (40
+// B each: about 765k points per row on an H100 at B=1); beyond that the
+// launch is refused and the wrapper raises. K8 fits about 1.9M points per
+// row.
 //
 // K9's fold: a bin's members lie l_lanes points apart, across K1's
 // contiguous chunks, so K9 hands each block whole bins instead (its points
@@ -44,8 +75,11 @@
 //
 // Bit-exactness: indices equal the JAX fps_xla / Pallas kernel only if d^2
 // has the same bits. XLA compiles the reference's (dx^2 + dy^2) + dz^2 into
-// fma(dz, dz, fma(dx, dx, dy * dy)); the kernel writes exactly that with _rn
-// intrinsics, which nvcc never re-associates or contracts differently.
+// fma(dz, dz, fma(dx, dx, dy * dy)); the kernels write exactly that with _rn
+// intrinsics (sq_dist), which nvcc never re-associates or contracts
+// differently. The cluster route compares order_key(d) (an unsigned that
+// orders as the float does; d is never -0 or NaN) where the grid route
+// compares floats: the same order, so the same picks.
 #include <cooperative_groups.h>
 #include <climits>
 
@@ -60,6 +94,15 @@ constexpr int kMaxBlocksPerRow = 4096;  // capacity of the candidate scratch
 
 __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
   return v1 > v2 || (v1 == v2 && i1 < i2);
+}
+
+// d^2 of a point to a centre with the reference's bits (see the header).
+__device__ __forceinline__ float sq_dist(float x, float y, float z, float cx, float cy,
+                                         float cz) {
+  const float dx = __fsub_rn(x, cx);
+  const float dy = __fsub_rn(y, cy);
+  const float dz = __fsub_rn(z, cz);
+  return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
 }
 
 // Block-wide (max value, smallest index); every thread gets the result.
@@ -180,10 +223,7 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
     float bv = -INFINITY;
     int bi = INT_MAX;
     for (int p = tid; p < cnt; p += blockDim.x) {
-      const float dx = __fsub_rn(sx[p], cx);
-      const float dy = __fsub_rn(sy[p], cy);
-      const float dz = __fsub_rn(sz[p], cz);
-      const float d = __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
+      const float d = sq_dist(sx[p], sy[p], sz[p], cx, cy, cz);
       const float m = fminf(smind[p], d);
       smind[p] = m;
       if (kInterp && d < bd2[p]) {
@@ -263,6 +303,386 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
   }
 }
 
+// ------------------------------------------------------------ cluster route
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kClusterThreads = 256;
+constexpr int kRegPoints = 32;  // the most points a thread holds in registers
+constexpr int kMaxCluster = 16;
+// Points a row may have on the cluster route: what a 16-CTA cluster holds
+// (ops/fps.py::CLUSTER_POINTS).
+constexpr int kClusterPoints = kMaxCluster * kClusterThreads * kRegPoints;
+
+// An unsigned that orders as the float does (for every float but NaN; -0
+// sorts below +0, and d^2 is never -0).
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// A candidate centre: its key (0: no point), index and xyz.
+struct Cand {
+  unsigned key, idx;
+  float x, y, z;
+};
+
+// The warp's largest key and, of the lanes that hold it, the lowest lane's
+// index and xyz; every lane gets them. The lanes hold increasing index
+// ranges, so the lowest lane holds the smallest index.
+__device__ __forceinline__ Cand warp_pick(unsigned key, unsigned idx, float x, float y,
+                                          float z) {
+  const unsigned top = __reduce_max_sync(kFull, key);
+  const int src = __ffs(__ballot_sync(kFull, key == top)) - 1;
+  return {top, __shfl_sync(kFull, idx, src), __shfl_sync(kFull, x, src),
+          __shfl_sync(kFull, y, src), __shfl_sync(kFull, z, src)};
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Every thread of the cluster arrives (release) and waits (acquire).
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// The address of a shared variable in the shared memory of CTA `rank` of
+// the cluster.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// Store 16 bytes at `dst` of a peer CTA and count them on its mbarrier `bar`
+// (both peer_addr).
+__device__ __forceinline__ void push16(uint32_t dst, uint32_t bar, unsigned a, float b, float c,
+                                       float d) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(dst), "r"(a), "r"(__float_as_uint(b)), "r"(__float_as_uint(c)),
+      "r"(__float_as_uint(d)), "r"(bar) : "memory");
+}
+
+// Wait for the phase of parity `parity` of a local mbarrier to complete
+// (acquire at cluster scope: the peers' stores are seen after it).
+__device__ __forceinline__ void mbar_wait(const void* mbar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(mbar)), "r"(parity) : "memory");
+  }
+}
+
+// Point n of a row (xyz; 0 where it does not exist) and its starting min
+// distance: +inf, or -inf for a padded or missing point.
+__device__ __forceinline__ float load_point(const float* P, const unsigned char* V, int n,
+                                            bool exists, float& x, float& y, float& z) {
+  x = exists ? P[3 * n] : 0.f;
+  y = exists ? P[3 * n + 1] : 0.f;
+  z = exists ? P[3 * n + 2] : 0.f;
+  return exists && (V == nullptr || V[n]) ? INFINITY : -INFINITY;
+}
+
+// K8 (kCenters false) or K1's selection (true: also the centres), R points
+// a thread in registers. Launched as gridDim = (C, B) with clusters of
+// (C, 1, 1). CTA `rank` of row b holds points [rank * chunk, (rank + 1) *
+// chunk); thread t of it the R points from rank * chunk + t * R on, in
+// index order, in registers, their xyz also in shared memory
+// ([slot][thread], for the winners' centres). Missing points sit at -inf
+// and never win. Ranks, warps, lanes and slots all hold increasing index
+// ranges, so at every level a tie goes to the first holder: the smallest
+// index.
+template <bool kCenters, int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fps_cluster_kernel(const float* __restrict__ pts, const unsigned char* __restrict__ valid,
+                   const int* __restrict__ first, int N, int G, int chunk,
+                   int* __restrict__ idx_out, float* __restrict__ centers_out) {
+  constexpr int T = kClusterThreads;
+  extern __shared__ float smem[];
+  float* sx = smem;
+  float* sy = sx + T * R;
+  float* sz = sy + T * R;
+  __shared__ Cand red[2][T / 32];                     // a slot a warp, by step parity
+  __shared__ __align__(16) float4 slot[2][kMaxCluster];  // a slot a CTA: key bits, xyz
+  __shared__ __align__(8) unsigned long long mbar[2];    // counts the slots' bytes
+
+  const int C = gridDim.x, rank = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int base = rank * chunk, cnt = max(0, min(chunk, N - base)), first_slot = t * R;
+  const float* P = pts + (size_t)b * N * 3;
+  const unsigned char* V = valid == nullptr ? nullptr : valid + (size_t)b * N;
+
+  float px[R], py[R], pz[R], pm[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int p = first_slot + k;
+    pm[k] = load_point(P, V, base + p, p < cnt, px[k], py[k], pz[k]);
+    sx[k * T + t] = px[k];
+    sy[k * T + t] = py[k];
+    sz[k * T + t] = pz[k];
+  }
+  if (C > 1) {
+    if (t == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&mbar[0])));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&mbar[1])));
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    // Every CTA of the cluster runs, with its mbarriers ready, before any push.
+    cluster_barrier();
+  } else {
+    __syncthreads();
+  }
+
+  int sel = first[b];
+  float cx = P[3 * sel], cy = P[3 * sel + 1], cz = P[3 * sel + 2];
+  if (rank == 0 && t == 0) {
+    idx_out[(size_t)b * G] = sel;
+    if (kCenters) {
+      centers_out[(size_t)b * G * 3] = cx;
+      centers_out[(size_t)b * G * 3 + 1] = cy;
+      centers_out[(size_t)b * G * 3 + 2] = cz;
+    }
+  }
+  // Warp 0's lane j < C pushes into CTA j: its slot [rank] and mbarrier.
+  uint32_t to_slot[2] = {0u, 0u}, to_bar[2] = {0u, 0u};
+  if (C > 1 && warp == 0 && lane < C) {
+    for (int q = 0; q < 2; ++q) {
+      to_slot[q] = peer_addr(&slot[q][rank], lane);
+      to_bar[q] = peer_addr(&mbar[q], lane);
+    }
+  }
+  for (int g = 1; g < G; ++g) {
+    // Step g's buffers and mbarrier phase: step g - 2 used them last.
+    const int par = (g - 1) & 1;
+    const uint32_t phase = ((g - 1) >> 1) & 1;
+
+    // This thread's best slot: in index order, strict > keeps the first.
+    float bv = 0.f;
+    int bk = 0;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      pm[k] = fminf(pm[k], sq_dist(px[k], py[k], pz[k], cx, cy, cz));
+      if (k == 0 || pm[k] > bv) {
+        bv = pm[k];
+        bk = k;
+      }
+    }
+    // A thread without points offers key 0, below every point.
+    Cand c = warp_pick(first_slot < cnt ? order_key(bv) : 0u, (unsigned)(base + first_slot + bk),
+                       sx[bk * T + t], sy[bk * T + t], sz[bk * T + t]);
+    if (lane == 0) red[par][warp] = c;
+    __syncthreads();
+    // This step's bytes, counted off the critical warp (warp 0 pushes).
+    if (C > 1 && t == 32)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(smem_addr(&mbar[par])), "r"(C * 16) : "memory");
+    int winner = rank;
+    if (C == 1 || warp == 0) {  // the CTA's candidate
+      Cand r = {0u, 0u, 0.f, 0.f, 0.f};
+      if (lane < T / 32) r = red[par][lane];
+      c = warp_pick(r.key, r.idx, r.x, r.y, r.z);
+    }
+    if (C > 1) {
+      // Warp 0 pushes it into slot [rank] of every CTA; every warp waits
+      // for the C slots of this step and picks among them (its idx: the
+      // winning rank).
+      if (warp == 0 && lane < C)
+        push16(par ? to_slot[1] : to_slot[0], par ? to_bar[1] : to_bar[0], c.key, c.x, c.y, c.z);
+      mbar_wait(&mbar[par], phase);
+      const float4 s = lane < C ? slot[par][lane] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const Cand w = warp_pick(__float_as_uint(s.x), (unsigned)lane, s.y, s.z, s.w);
+      winner = (int)w.idx;
+      cx = w.x;
+      cy = w.y;
+      cz = w.z;
+    } else {
+      cx = c.x;
+      cy = c.y;
+      cz = c.z;
+    }
+    if (winner == rank && t == 0) {  // the winning CTA records its pick
+      idx_out[(size_t)b * G + g] = (int)c.idx;
+      if (kCenters) {
+        float* o = centers_out + ((size_t)b * G + g) * 3;
+        o[0] = cx;
+        o[1] = cy;
+        o[2] = cz;
+      }
+    }
+  }
+  // No CTA leaves while a peer's last push may still be landing in it.
+  if (C > 1) cluster_barrier();
+}
+
+// K1's 3-NN on the cluster route: every point's 3 nearest of the G centres,
+// in centre order with strict <, as the fused loop of the grid route keeps
+// them. One thread a point; the centres pass through shared memory in
+// tiles of kNnTile.
+constexpr int kNnThreads = 256;
+constexpr int kNnTile = 2048;
+
+__global__ void __launch_bounds__(kNnThreads)
+fps_nn3_kernel(const float* __restrict__ pts, const float* __restrict__ centers, int N, int G,
+               int* __restrict__ interp_idx, float* __restrict__ interp_d2) {
+  __shared__ float4 sc[kNnTile];
+  const int b = blockIdx.y, n = blockIdx.x * kNnThreads + threadIdx.x;
+  const float* P = pts + (size_t)b * N * 3;
+  const float* Cb = centers + (size_t)b * G * 3;
+  float x = 0.f, y = 0.f, z = 0.f;
+  if (n < N) {
+    x = P[3 * n];
+    y = P[3 * n + 1];
+    z = P[3 * n + 2];
+  }
+  float bd0 = INFINITY, bd1 = INFINITY, bd2 = INFINITY;
+  int bi0 = 0, bi1 = 0, bi2 = 0;
+  for (int g0 = 0; g0 < G; g0 += kNnTile) {
+    const int m = min(kNnTile, G - g0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < m; i += kNnThreads) {
+      const float* c = Cb + (size_t)(g0 + i) * 3;
+      sc[i] = make_float4(c[0], c[1], c[2], 0.f);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < m; ++i) {
+      const float4 c = sc[i];
+      const float d = sq_dist(x, y, z, c.x, c.y, c.z);
+      if (d < bd2) {
+        const int g = g0 + i;
+        if (d < bd1) {
+          bd2 = bd1;
+          bi2 = bi1;
+          if (d < bd0) {
+            bd1 = bd0;
+            bi1 = bi0;
+            bd0 = d;
+            bi0 = g;
+          } else {
+            bd1 = d;
+            bi1 = g;
+          }
+        } else {
+          bd2 = d;
+          bi2 = g;
+        }
+      }
+    }
+  }
+  if (n >= N) return;
+  const size_t o = ((size_t)b * N + n) * 3;
+  interp_idx[o] = bi0;
+  interp_idx[o + 1] = bi1;
+  interp_idx[o + 2] = bi2;
+  interp_d2[o] = bd0;
+  interp_d2[o + 1] = bd1;
+  interp_d2[o + 2] = bd2;
+}
+
+// Let `kernel` take all the shared memory a block may opt in to.
+template <typename Kernel>
+cudaError_t allow_max_smem(Kernel* kernel) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - (int)fa.sharedSizeBytes);
+}
+
+template <bool kCenters, int R>
+cudaError_t cluster_attributes() {
+  auto* kernel = fps_cluster_kernel<kCenters, R>;
+  const cudaError_t err = allow_max_smem(kernel);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// Once per process: every instantiation's attributes.
+cudaError_t cluster_setup() {
+  for (cudaError_t err : {cluster_attributes<false, 1>(), cluster_attributes<false, 2>(),
+                          cluster_attributes<false, 4>(), cluster_attributes<false, 8>(),
+                          cluster_attributes<false, 16>(), cluster_attributes<false, 32>(),
+                          cluster_attributes<true, 1>(), cluster_attributes<true, 2>(),
+                          cluster_attributes<true, 4>(), cluster_attributes<true, 8>(),
+                          cluster_attributes<true, 16>(), cluster_attributes<true, 32>()})
+    if (err != cudaSuccess) return err;
+  return cudaSuccess;
+}
+
+template <bool kCenters, int R>
+cudaError_t launch_cluster_r(const cudaLaunchConfig_t& cfg, const void* pts, const void* valid,
+                             const void* first, int N, int G, int chunk, void* idx_out,
+                             void* centers_out) {
+  return cudaLaunchKernelEx(&cfg, fps_cluster_kernel<kCenters, R>, static_cast<const float*>(pts),
+                            static_cast<const unsigned char*>(valid),
+                            static_cast<const int*>(first), N, G, chunk,
+                            static_cast<int*>(idx_out), static_cast<float*>(centers_out));
+}
+
+template <bool kCenters>
+int launch_cluster(const void* pts, const void* valid, const void* first, int B, int N, int G,
+                   void* idx_out, void* centers_out, void* stream) {
+  if (B <= 0 || N <= 0 || G <= 0 || N > kClusterPoints) return (int)cudaErrorInvalidValue;
+  static const cudaError_t setup = cluster_setup();
+  if (setup != cudaSuccess) return (int)setup;
+  constexpr int T = kClusterThreads;
+  // One CTA where its registers hold the row: then no exchange between CTAs
+  // at all. Else the row spread over 16 CTAs: a step's arithmetic shrinks
+  // with the points a CTA holds, and the exchange costs about the same from
+  // 2 to 16 CTAs. R: the thread's points, rounded up to a power of two.
+  const int C = N <= T * kRegPoints ? 1 : kMaxCluster;
+  const int chunk = (N + C - 1) / C;
+  const int per_thread = (chunk + T - 1) / T;
+  int R = 1;
+  while (R < per_thread) R *= 2;
+
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, B);
+  cfg.blockDim = dim3(T);
+  cfg.dynamicSmemBytes = sizeof(float) * 3 * T * R;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  switch (R) {
+    case 1: err = launch_cluster_r<kCenters, 1>(cfg, pts, valid, first, N, G, chunk,
+                                                idx_out, centers_out); break;
+    case 2: err = launch_cluster_r<kCenters, 2>(cfg, pts, valid, first, N, G, chunk,
+                                                idx_out, centers_out); break;
+    case 4: err = launch_cluster_r<kCenters, 4>(cfg, pts, valid, first, N, G, chunk,
+                                                idx_out, centers_out); break;
+    case 8: err = launch_cluster_r<kCenters, 8>(cfg, pts, valid, first, N, G, chunk,
+                                                idx_out, centers_out); break;
+    case 16: err = launch_cluster_r<kCenters, 16>(cfg, pts, valid, first, N, G, chunk,
+                                                  idx_out, centers_out); break;
+    default: err = launch_cluster_r<kCenters, 32>(cfg, pts, valid, first, N, G, chunk,
+                                                  idx_out, centers_out);
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int launch_nn3(const void* pts, const void* centers, int B, int N, int G, void* interp_idx,
+               void* interp_d2, void* stream) {
+  fps_nn3_kernel<<<dim3((N + kNnThreads - 1) / kNnThreads, B), kNnThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pts), static_cast<const float*>(centers), N, G,
+      static_cast<int*>(interp_idx), static_cast<float*>(interp_d2));
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- grid route
 template <int kMode>
 int launch(const void* pts, const void* valid, const void* first, int B, int N, int G,
            void* idx_out, void* centers_out, void* interp_idx, void* interp_d2, void* cand_v,
@@ -282,11 +702,10 @@ int launch(const void* pts, const void* valid, const void* first, int B, int N, 
   const int words = kMode == kSelect ? 4 : kMode == kInterpMode ? 10 : 12;
   const size_t smem = (size_t)chunk * words * sizeof(float);
   auto* kernel = fps_interp_kernel<kMode>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t attr = allow_max_smem(kernel);
+  if (attr != cudaSuccess) return (int)attr;
   int occ = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (nblk > kMaxBlocksPerRow || (long long)occ * sms < (long long)nblk * B)
     return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -311,21 +730,31 @@ int launch(const void* pts, const void* valid, const void* first, int B, int N, 
 }  // namespace
 
 // pts [B, N, 3] f32; valid [B, N] uint8 or NULL; first [B] int32 (first
-// valid index per row); outputs idx [B, G] int32, centers [B, G, 3] f32,
-// interp_idx [B, N, 3] int32, interp_d2 [B, N, 3] f32; cand_v / cand_i are
-// scratch of 2 * B * 4096 entries each.
+// valid index per row); cluster 1 (the cluster route: N <= 131072, then
+// cand_v / cand_i may be NULL) or 0 (the grid route); outputs idx [B, G]
+// int32, centers [B, G, 3] f32, interp_idx [B, N, 3] int32, interp_d2
+// [B, N, 3] f32; cand_v / cand_i are the grid route's scratch of
+// 2 * B * 4096 entries each.
 extern "C" int psam_fps_interp(const void* pts, const void* valid, const void* first, int B,
-                               int N, int G, void* idx_out, void* centers_out,
+                               int N, int G, int cluster, void* idx_out, void* centers_out,
                                void* interp_idx, void* interp_d2, void* cand_v, void* cand_i,
                                void* stream) {
-  return launch<kInterpMode>(pts, valid, first, B, N, G, idx_out, centers_out, interp_idx,
-                             interp_d2, cand_v, cand_i, Bins{}, stream);
+  if (!cluster)
+    return launch<kInterpMode>(pts, valid, first, B, N, G, idx_out, centers_out, interp_idx,
+                               interp_d2, cand_v, cand_i, Bins{}, stream);
+  const int err =
+      launch_cluster<true>(pts, valid, first, B, N, G, idx_out, centers_out, stream);
+  if (err != 0) return err;
+  return launch_nn3(pts, centers_out, B, N, G, interp_idx, interp_d2, stream);
 }
 
 // K8: the selection alone. Same arguments as psam_fps_interp without the
 // centres and the 3-NN outputs; idx [B, G] int32.
 extern "C" int psam_fps(const void* pts, const void* valid, const void* first, int B, int N,
-                        int G, void* idx_out, void* cand_v, void* cand_i, void* stream) {
+                        int G, int cluster, void* idx_out, void* cand_v, void* cand_i,
+                        void* stream) {
+  if (cluster)
+    return launch_cluster<false>(pts, valid, first, B, N, G, idx_out, nullptr, stream);
   return launch<kSelect>(pts, valid, first, B, N, G, idx_out, nullptr, nullptr, nullptr,
                          cand_v, cand_i, Bins{}, stream);
 }

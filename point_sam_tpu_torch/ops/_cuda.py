@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (argtypes) of every entry point in csrc/.
 _SIGNATURES = {
-    "psam_fps_interp": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "psam_fps_interp": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "psam_patch_encoder": [_P, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P,
@@ -56,7 +56,7 @@ _SIGNATURES = {
                                _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "psam_patch_encoder_bwd_slices": [_I],
     "psam_patch_encoder_bwd_route": [_I, _I, _I, _I, _I, _I],
-    "psam_fps": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "psam_fps": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "psam_interp_weights": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "psam_attention_heads": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "psam_upscale_hyper": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

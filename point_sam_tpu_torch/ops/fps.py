@@ -13,6 +13,12 @@ weights. On a CUDA tensor it launches kernel K1 (``csrc/fps_interp.cu``,
 replacing ``ops/fps_pallas.py::fps_interp_pallas``); on a CPU tensor it
 runs ``fps_interp_plain``, the same computation step by step in torch.
 
+K1 and K8 take one of two routes, by the row length alone
+(``fps_route``): "cluster", one thread-block cluster a row with every
+point held on chip (K1: then a 3-NN launch over the centres), for rows of
+up to ``CLUSTER_POINTS``; "grid", the cooperative kernel over all SMs,
+above that.
+
 ``fps_with_interp_knn`` adds the tokenizer's k nearest points of every
 centre, from bins that the selection loop fills as it goes: kernel K9
 (``csrc/fps_interp.cu``, replacing ``ops/fps_pallas.py::fps_interp_knn_pallas``)
@@ -92,26 +98,67 @@ def _first_valid(points: torch.Tensor, valid: torch.Tensor | None):
 
 
 def _candidates(B: int, device):
-    """Scratch of the kernels' double-buffered per-block candidates."""
+    """Scratch of the grid kernels' double-buffered per-block candidates."""
     return (torch.empty(2 * B * 4096, dtype=torch.float32, device=device),
             torch.empty(2 * B * 4096, dtype=torch.int32, device=device))
+
+
+# The most points a row may have on the cluster route: what a cluster of 16
+# CTAs holds, 256 threads x 32 points in registers each
+# (csrc/fps_interp.cu kClusterPoints). It holds the serve bucket.
+CLUSTER_POINTS = 131_072
+
+
+def fps_route(N: int) -> str:
+    """The route of K1's and K8's launch for rows of N points: "cluster"
+    (one thread-block cluster a row, its points held on chip for the
+    whole loop) up to ``CLUSTER_POINTS``, which takes the serve bucket
+    131072 and the train rows; "grid" (the cooperative kernel over all
+    SMs) above, e.g. the Predictor's 524288 bucket."""
+    return "cluster" if N <= CLUSTER_POINTS else "grid"
+
+
+def _launch(points: torch.Tensor, num_samples: int, valid, route: str, interp: bool):
+    """Launch K1 (``interp``) or K8 on ``route`` ("cluster" or "grid"): K8's
+    idx, or K1's (idx, centers, interp_idx, interp_d2). The wrappers pass
+    ``fps_route``; a check may name the other route to hold the two
+    against each other. Counts nothing."""
+    if route not in ("cluster", "grid"):
+        raise ValueError(f"unknown FPS route {route!r}")
+    points = points.float().contiguous()
+    _cuda.require_cuda(points)
+    B, N, _ = points.shape
+    dev = points.device
+    valid_u8, first = _first_valid(points, valid)
+    G = num_samples
+    idx = torch.empty((B, G), dtype=torch.int32, device=dev)
+    cand_v, cand_i = _candidates(B, dev) if route == "grid" else (None, None)
+    p, lib, cluster = _cuda.ptr, _cuda.library(), int(route == "cluster")
+    if not interp:
+        code = lib.psam_fps(p(points), p(valid_u8), p(first), B, N, G, cluster, p(idx),
+                            p(cand_v), p(cand_i), _cuda.stream())
+        _cuda.check("psam_fps", code)
+        return idx
+    centers = torch.empty((B, G, 3), dtype=torch.float32, device=dev)
+    interp_idx = torch.empty((B, N, 3), dtype=torch.int32, device=dev)
+    interp_d2 = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    code = lib.psam_fps_interp(p(points), p(valid_u8), p(first), B, N, G, cluster, p(idx),
+                               p(centers), p(interp_idx), p(interp_d2), p(cand_v), p(cand_i),
+                               _cuda.stream())
+    _cuda.check("psam_fps_interp", code)
+    return idx, centers, interp_idx, interp_d2
 
 
 @_cuda.counted
 def fps_cuda(points: torch.Tensor, num_samples: int, *,
              valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel K8 on the card; same indices as ``fps_plain``."""
-    points = points.float().contiguous()
-    _cuda.require_cuda(points)
+    """Kernel K8 on the card, on the route ``fps_route`` gives (recorded
+    in its launch count); same indices as ``fps_plain``."""
     B, N, _ = points.shape
-    valid_u8, first = _first_valid(points, valid)
-    idx = torch.empty((B, num_samples), dtype=torch.int32, device=points.device)
-    cand_v, cand_i = _candidates(B, points.device)
-    code = _cuda.library().psam_fps(
-        _cuda.ptr(points), _cuda.ptr(valid_u8), _cuda.ptr(first), B, N, num_samples,
-        _cuda.ptr(idx), _cuda.ptr(cand_v), _cuda.ptr(cand_i), _cuda.stream())
-    _cuda.check("psam_fps", code)
-    _cuda.count_launch(fps_cuda, B=B, N=N, G=num_samples, valid=valid is not None)
+    route = fps_route(N)
+    idx = _launch(points, num_samples, valid, route, interp=False)
+    _cuda.count_launch(fps_cuda, B=B, N=N, G=num_samples, valid=valid is not None,
+                       route=route)
     return idx
 
 
@@ -179,25 +226,14 @@ def fps_interp_plain(points: torch.Tensor, num_samples: int, *,
 @_cuda.counted
 def fps_interp_cuda(points: torch.Tensor, num_samples: int, *,
                     valid: torch.Tensor | None = None):
-    """Kernel K1 on the card; same outputs as ``fps_interp_plain``."""
-    points = points.float().contiguous()
-    _cuda.require_cuda(points)
+    """Kernel K1 on the card, on the route ``fps_route`` gives (recorded
+    in its launch count); same outputs as ``fps_interp_plain``."""
     B, N, _ = points.shape
-    dev = points.device
-    valid_u8, first = _first_valid(points, valid)
-    G = num_samples
-    idx = torch.empty((B, G), dtype=torch.int32, device=dev)
-    centers = torch.empty((B, G, 3), dtype=torch.float32, device=dev)
-    interp_idx = torch.empty((B, N, 3), dtype=torch.int32, device=dev)
-    interp_d2 = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
-    cand_v, cand_i = _candidates(B, dev)
-    code = _cuda.library().psam_fps_interp(
-        _cuda.ptr(points), _cuda.ptr(valid_u8), _cuda.ptr(first), B, N, G,
-        _cuda.ptr(idx), _cuda.ptr(centers), _cuda.ptr(interp_idx),
-        _cuda.ptr(interp_d2), _cuda.ptr(cand_v), _cuda.ptr(cand_i), _cuda.stream())
-    _cuda.check("psam_fps_interp", code)
-    _cuda.count_launch(fps_interp_cuda, B=B, N=N, G=G, valid=valid is not None)
-    return idx, centers, interp_idx, interp_d2
+    route = fps_route(N)
+    out = _launch(points, num_samples, valid, route, interp=True)
+    _cuda.count_launch(fps_interp_cuda, B=B, N=N, G=num_samples, valid=valid is not None,
+                       route=route)
+    return out
 
 
 def fps_with_interp(

@@ -11,7 +11,8 @@ Tolerances: fp32 kernels sum in another order than torch's matmuls
 (1e-5 attention, 1e-4 for the deeper PointNet / decode-tail chains); bf16
 kernels round where the reference rounds but accumulate in another order
 (2e-2 relative, the bound the JAX package's chip smoke uses for its bf16
-kernels); K5 as K3. K1 and K8 are exact: indices equal and d^2 bit-equal.
+kernels); K5 as K3. K1 and K8 are exact: indices equal and d^2 bit-equal,
+on both routes (``fps_route``: a cluster a row, or the cooperative grid).
 K10: indices equal, weights within 1e-6 (the same fp32 operations; only
 the division may round differently). K9 is exact (K1's outputs and the
 kNN ids). K11 as K4. The backward
@@ -161,9 +162,11 @@ def test_k1_kernel_matches_plain(cuda, B, N, G, with_valid):
         v = rng.random((B, N)) > 0.1
         v[0, :3] = False
         valid = to(v, cuda)
+    F.fps_interp_cuda.shapes = {}
     got = F.fps_interp_cuda(pts, G, valid=valid)
     want = F.fps_interp_plain(pts, G, valid=valid)
     torch.cuda.synchronize()
+    assert fps_launch_route(F.fps_interp_cuda) == "cluster"
     for g_, w_ in zip(got, want):
         np.testing.assert_array_equal(n(g_), n(w_))
 
@@ -376,9 +379,79 @@ def test_k8_kernel_matches_plain(cuda, B, N, G, with_valid):
         v = rng.random((B, N)) > 0.1
         v[0, :3] = False
         valid = to(v, cuda)
+    F.fps_cuda.shapes = {}
     got = F.fps_cuda(pts, G, valid=valid)
     torch.cuda.synchronize()
+    assert fps_launch_route(F.fps_cuda) == "cluster"
     np.testing.assert_array_equal(n(got), n(F.fps_plain(pts, G, valid=valid)))
+
+
+def fps_case(case, device):
+    """(points [B, N, 3], valid or None, G) of a K1 / K8 case on ``device``."""
+    rng = np.random.default_rng(13)
+    B, N, G, n_valid = {"dup-across-ctas": (1, 24000, 512, None),
+                        "all-equal": (1, 20000, 64, None),
+                        "serve-padded": (1, 131072, 2048, 100_000),
+                        "g4096": (1, 131072, 4096, 100_000),
+                        "train": (2, 10000, 1024, None),
+                        "g1": (2, 5000, 1, 4000),
+                        "above-cluster": (1, 150_000, 256, 140_000)}[case]
+    pts = rng.standard_normal((B, N, 3)).astype(np.float32)
+    if case == "dup-across-ctas":  # each point twice, its copies in other CTAs
+        pts[:, N // 2:] = pts[:, :N // 2]
+    if case == "all-equal":  # every distance ties
+        pts[:] = pts[:, :1]
+    valid = None
+    if n_valid is not None:  # a padded tail at 0, as the Predictor pads
+        pts[:, n_valid:] = 0.0
+        v = np.zeros((B, N), dtype=bool)
+        v[:, :n_valid] = True
+        valid = to(v, device)
+    return to(pts, device), valid, G
+
+
+def fps_launch_route(wrapper):
+    """The route of ``wrapper``'s one counted launch since its counts were
+    reset."""
+    (key,) = wrapper.shapes
+    return dict(key)["route"]
+
+
+FPS_CASES = ("dup-across-ctas", "all-equal", "serve-padded", "g4096", "train", "g1",
+             "above-cluster")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K8"])
+@pytest.mark.parametrize("case", FPS_CASES)
+def test_fps_routes_match_plain(cuda, kernel, case):
+    """K1 and K8 bit-equal to their plain versions on the route
+    ``fps_route`` picks (the launch counter records it): ties across the
+    cluster's CTAs, a padded serve row, G = 4096, the train rows, G = 1, and
+    a row above the cluster's capacity on the grid route. The other route
+    gives the same bits where it takes the row; a cluster launch of a row it
+    cannot hold raises."""
+    pts, valid, G = fps_case(case, cuda)
+    interp = kernel == "K1"
+    wrapper, plain = ((F.fps_interp_cuda, F.fps_interp_plain) if interp
+                      else (F.fps_cuda, F.fps_plain))
+    wrapper.shapes = {}
+    got = wrapper(pts, G, valid=valid)
+    want = plain(pts, G, valid=valid)
+    route = "grid" if case == "above-cluster" else "cluster"
+    assert fps_launch_route(wrapper) == F.fps_route(pts.shape[1]) == route
+    got, want = (got, want) if interp else ((got,), (want,))
+    if route == "grid":
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            F._launch(pts, G, valid, "cluster", interp)
+        other = got
+    else:
+        other = F._launch(pts, G, valid, "grid", interp)
+        other = other if interp else (other,)
+    torch.cuda.synchronize()
+    for g_, o_, w_ in zip(got, other, want):
+        np.testing.assert_array_equal(n(g_), n(w_))
+        np.testing.assert_array_equal(n(o_), n(w_))
 
 
 @pytest.mark.cuda

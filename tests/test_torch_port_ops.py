@@ -10,6 +10,8 @@ that plain version on a card.
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -180,6 +182,32 @@ def test_fps_with_interp_matches_jax_cpu(rng):
     np.testing.assert_array_equal(n(ctr), np.asarray(j_ctr))
     np.testing.assert_array_equal(n(iidx), np.asarray(j_iidx))
     np.testing.assert_allclose(n(w), np.asarray(j_w), atol=1e-5)
+
+
+# The row lengths K1 and K8 meet: every Predictor bucket, the train rows
+# (configs/large.yaml: N=10,000), and the edges of the cluster's capacity.
+@pytest.mark.parametrize("N,route", [
+    (1, "cluster"), (2048, "cluster"), (8192, "cluster"), (10_000, "cluster"),
+    (32768, "cluster"), (131_072, "cluster"), (131_073, "grid"), (524_288, "grid")])
+def test_fps_route_by_row_length(N, route):
+    """K1 and K8 take the cluster route up to the serve bucket and the grid
+    route above it, by the row length alone."""
+    assert F.fps_route(N) == route
+
+
+def test_fps_cluster_points_match_the_kernel():
+    """CLUSTER_POINTS is the cluster kernel's capacity as csrc/fps_interp.cu
+    computes it (16 CTAs x threads x register points), so the route never
+    hands the kernel a row it refuses."""
+    src = (Path(F.__file__).resolve().parents[1] / "csrc" / "fps_interp.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert re.search(r"constexpr int kClusterPoints = kMaxCluster \* kClusterThreads \* "
+                     r"kRegPoints;", src)
+    cap = const("kMaxCluster") * const("kClusterThreads") * const("kRegPoints")
+    assert cap == F.CLUSTER_POINTS == 131_072
 
 
 def test_fps_with_interp_candidates_not_ported(rng):
