@@ -8,13 +8,14 @@ last line):
 
 1. header: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build: compile the kernels from point_sam_tpu_torch/csrc (one nvcc per
-   source, all started together), then print the attention, K2, K7 and FPS
-   kernels' registers and stack (spill) bytes from ``cuobjdump
-   --dump-resource-usage`` of the built library (reported, not gated; K7's
-   four: the pass-C mma kernel, the pass-D mma kernel at both of its dw1a
-   register tilings, and the one-launch kernel; FPS: the cluster route's
-   selection kernel for K8 and K1, K1's 3-NN kernel, and the grid route's
-   cooperative kernel in its three modes);
+   source, all started together), then print the attention, K2, K7, FPS
+   and decoder-tail kernels' registers and stack (spill) bytes from
+   ``cuobjdump --dump-resource-usage`` of the built library (reported, not
+   gated; K7's four: the pass-C mma kernel, the pass-D mma kernel at both of
+   its dw1a register tilings, and the one-launch kernel; FPS: the cluster
+   route's selection kernel for K8 and K1, K1's 3-NN kernel, and the grid
+   route's cooperative kernel in its three modes; K4 / K11: the mma route's
+   kernel at D 128 and 256 and the fma route's, <true> K4, <false> K11);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
    so the decoder tail takes K4): the Predictor on the CPU (plain versions)
    and on the card (kernels), same weights, cloud and 3 clicks;
@@ -25,12 +26,15 @@ last line):
    dtypes it was called with);
 5. each kernel of the serving path against its plain torch version at
    every shape and dtype that path launched it with, on seeded inputs, both
-   timed with CUDA events (median after a warm-up), with the one PyTorch
+   timed with CUDA events (median after a warm-up; the kernel also as its
+   device time alone, the card spinning while the host prepares the call),
+   with the one PyTorch
    call of the same function as a yardstick where there is one (SDPA for
    K3 and K5; the port never calls it); K1 and K8 (everywhere they run)
    also on the grid route where the path took the cluster route
    (``fps_route``), held to the same plain outputs, timed, and both
-   printed as microseconds a selection step;
+   printed as microseconds a selection step; K4 and K11 likewise on the
+   route (``upscale_route``) the path did not take, "fma" beside "mma";
 5b. K3 and K5 at their edges against their plain versions, fp32 and bf16:
    ragged S (77, 200, 2049) at every padded head size (dh 32, 64, 88,
    128), grids wider than one wave, large logits at the serve and voronoi
@@ -63,6 +67,8 @@ last line):
 11. as 5, for every kernel of both hier runs, and the decoder tail at the
    override's shape by both routes on the same inputs (the cloud's level-1
    geometry, C=3 and C=1): K4 against the gather and K11 the path takes;
+   then the sha256 of K4's and K11's fp32 outputs on seeded inputs
+   (``tail_digest``);
 12. the fused-geometry serving path: the ViT-L Predictor of 4 built with
    ``knn_method="approx"``: K9 once per encode (FPS, 3-NN
    and the binned kNN in one pass, then a top-k over 4096 bins) and
@@ -103,11 +109,13 @@ last line):
 16. profiles under torch.profiler (device time by stage; K7 by kernel:
    pass C, pass D, the reduction): one ViT-L train step, timed on one batch before and after that profiler session, then
    one encode of each serving path (ViT-L, voronoi EVA-giant, hier at
-   both groupings, fused-geometry ViT-L) on its model built anew, then 20
+   both groupings, fused-geometry ViT-L) on its model built anew, the
+   ViT-L's first and refining click by stage (the decoder tail's kernels
+   held to K4's and K11's launches), then 20
    calls of K6 and 20 of SDPA's backward at the train shape. They come last, after
    every timed phase, because a profiler session slows the host's
-   launches for the rest of the process. Every launch that K1-K3, K5, K8,
-   K9 and K10 count in a profiled step or encode must show in its trace (a
+   launches for the rest of the process. Every launch that K1-K5, K8-K11
+   count in a profiled step, encode or click must show in its trace (a
    session that lost one is retaken, at most 3 in all), and each profiled
    encode's geometry must equal its warm-up's bit for bit.
 
@@ -223,13 +231,20 @@ def nvcc_version() -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def time_ms(torch, fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up."""
+def time_ms(torch, fn, reps: int = 5, ahead: bool = False) -> float:
+    """Median time between CUDA events around ``fn`` over ``reps`` runs
+    after one warm-up. The host's work for ``fn`` (a wrapper's casts and
+    checks, the launch) counts where the card waits for it. With ``ahead``
+    the card first spins for about a millisecond (``torch.cuda._sleep``),
+    so the host is done before the card reaches ``fn``: the device time of
+    its kernels alone."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if ahead:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -511,7 +526,9 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
             run=lambda: UP.interp_upscale_cuda(h1, idx, w, params, hyper, cdt=cdt),
             plain=lambda: UP.interp_upscale_plain(h1, idx, w, params, hyper, cdt=cdt),
             compare=within("K4", 2e-2),
-            work=(nbytes, {kind: 2.0 * B * M * N * D * D + 2.0 * B * M * C * N * D}))
+            work=(nbytes, {kind: 2.0 * B * M * N * D * D + 2.0 * B * M * C * N * D}),
+            **tail_routes_of(UP, key, D, C, cdt, lambda r: UP._launch_interp_upscale(
+                h1, idx, w, params, hyper, cdt, r)))
 
     if name == "K11":
         BM, N, D, C = (key[f] for f in ("BM", "N", "D", "C"))
@@ -525,8 +542,21 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
             run=lambda: UP.upscale_hyper_cuda(x, params, hyper, cdt=cdt),
             plain=lambda: UP.upscale_hyper_reference(x, params, hyper, cdt=cdt),
             compare=within("K11", 2e-2),
-            work=(nbytes, {kind: 2.0 * BM * N * D * D + 2.0 * BM * C * N * D}))
+            work=(nbytes, {kind: 2.0 * BM * N * D * D + 2.0 * BM * C * N * D}),
+            **tail_routes_of(UP, key, D, C, cdt, lambda r: UP._launch_upscale_hyper(
+                x, params, hyper, cdt, r)))
     raise ValueError(name)
+
+
+def tail_routes_of(UP, key: dict, D: int, C: int, cdt, launch) -> dict:
+    """The route a K4 / K11 launch key recorded, which must be
+    ``upscale_route``'s for the key's shapes; where that is "mma", also the
+    "fma" route (``launch(route)``), which takes every shape, as the other.
+    The mma route takes no shape that upscale_route gives to fma."""
+    route = UP.upscale_route(D, C, cdt)
+    check(key["route"] == route, f"decoder tail {key}: route is not {route}")
+    other = {"other": lambda: launch("fma"), "other_route": "fma"} if route == "mma" else {}
+    return dict(route=route, **other)
 
 
 def pe_stages(torch, PE, x, params, G, K, cdt, act):
@@ -731,7 +761,8 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
     """Each kernel a path launched, against its plain version at every
     shape and dtype the path gave it: one row per launch key, with the
     path's launches at that key, the error, the kernel's, plain and library
-    times (CUDA events, median) and the bound. K2 with its argmax outputs
+    times (CUDA events, median; the kernel also as device time alone,
+    ``time_ms(ahead=True)``) and the bound. K2 with its argmax outputs
     is also timed without them (``ms_without_argmax``)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -742,23 +773,28 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
             case = kernel_case(torch, np, mods, name, key, g)
             want = case["plain"]()
             err = case["compare"](case["run"](), want)
-            if "other" in case:  # K1 / K8 on the route the path did not take
+            if "other" in case:  # K1 / K8, K4 / K11 on the route the path did not take
                 case["compare"](case["other"](), want)
             del want
             torch.cuda.empty_cache()
             row = dict(kernel=name, path=path, shape=key, launches=shapes[key_t],
                        variant=",".join(f"{f}={key[f]}" for f in varying), max_abs_err=err,
                        ms=time_ms(torch, case["run"]),
+                       device_ms=time_ms(torch, case["run"], ahead=True),
                        plain_ms=time_ms(torch, case["plain"], reps=3),
                        library_ms=time_ms(torch, case["library"]) if "library" in case else None)
             if "without" in case:
                 row["ms_without_argmax"] = time_ms(torch, case["without"])
+            if "other" in case:  # K1 / K8, K4 / K11: the route the path did not take
+                row.update(other_route=case["other_route"],
+                           ms_other_route=time_ms(torch, case["other"]),
+                           device_ms_other_route=time_ms(torch, case["other"], ahead=True))
+            if "route" in case:  # K4 / K11
+                row["tail_route"] = case["route"]
             if "steps" in case:  # K1 / K8: per selection step, on both routes
                 steps = max(1, case["steps"])
                 row.update(fps_route=key["route"], us_per_step=row["ms"] * 1e3 / steps)
                 if "other" in case:
-                    row.update(other_route=case["other_route"],
-                               ms_other_route=time_ms(torch, case["other"]))
                     row["us_per_step_other_route"] = row["ms_other_route"] * 1e3 / steps
             if "passes" in case:  # K7's mma route: C, then D and the reduction by difference
                 c_ms, cd_ms = (time_ms(torch, fn) for fn in case["passes"])
@@ -775,12 +811,18 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
                 if "ms_other_route" in row:
                     lib += (f"; {row['other_route']} route {row['ms_other_route']:.4f} ms, "
                             f"{row['us_per_step_other_route']:.4f} us a step")
+            if "tail_route" in row:
+                lib += f"  route {row['tail_route']}"
+                if "ms_other_route" in row:
+                    lib += (f"; {row['other_route']} route {row['ms_other_route']:.4f} ms, "
+                            f"device {row['device_ms_other_route']:.4f} ms")
             if "ms_pass_c" in row:
                 lib += (f"  pass C {row['ms_pass_c']:.4f} ms, pass D {row['ms_pass_d']:.4f} ms "
                         f"(its bound {row['bound_ms_pass_d']:.4f} ms), "
                         f"reduction and set-up {row['ms_reduce']:.4f} ms")
             print(f"kernel {name} {path} {key}: {row['launches']} launches, max_abs_err "
-                  f"{err:.6g}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms{lib}  "
+                  f"{err:.6g}  kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms)  "
+                  f"plain {row['plain_ms']:.4f} ms{lib}  "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
             rows.append(row)
     return rows
@@ -934,8 +976,9 @@ def attention_bwd_edges(torch, A) -> None:
 
 def resource_usage(lib) -> None:
     """Registers, stack and local bytes (spills) of each attention kernel,
-    each K2 and K7 kernel and each FPS kernel (both routes of K1 / K8, and
-    K9) in the built library, from ``cuobjdump
+    each K2 and K7 kernel, each FPS kernel (both routes of K1 / K8, and
+    K9) and each decoder-tail kernel (K4 / K11 on both routes: <true> is K4,
+    <false> K11) in the built library, from ``cuobjdump
     --dump-resource-usage``. Reported only: a missing tool or an unknown
     format prints a note and gates nothing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -952,7 +995,14 @@ def resource_usage(lib) -> None:
         k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd(?:_c_mma|_d_mma)?)?_kernel)"
                        r"(?:I(f|13__nv_bfloat16|Li\d+E)E)?", mangled)
         fk = re.search(r"\d+(fps_(?:interp|cluster|nn3)_kernel)(?:I((?:L[bi]\d+E)+)E)?", mangled)
-        if fk:
+        up = re.search(r"\d+(interp_upscale(?:_mma)?_kernel)I((?:f|13__nv_bfloat16|L[bi]\d+E)+)E",
+                       mangled)
+        if up:
+            args = ", ".join({"f": "float", "13__nv_bfloat16": "bf16", "Lb0": "false",
+                              "Lb1": "true"}.get(a + v, v)
+                             for a, v in re.findall(r"(f|13__nv_bfloat16|L[bi])(\d*)E?", up[2]))
+            rows.append(f"{up[1]}<{args}> {reg} reg, stack {stack} B, local {local} B")
+        elif fk:
             args = ", ".join({"b0": "false", "b1": "true"}.get(k + v, v)
                              for k, v in re.findall(r"L([bi])(\d+)E", fk[2] or ""))
             rows.append(f"{fk[1]}{f'<{args}>' if args else ''} {reg} reg, stack {stack} B, "
@@ -966,7 +1016,8 @@ def resource_usage(lib) -> None:
                      {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(k2[2] or "", ""))
             rows.append(f"{k2[1]}{dtype} {reg} reg, stack {stack} B, local {local} B")
     print("resources (cuobjdump): "
-          + ("; ".join(sorted(rows)) or "no attention, K2, K7 or FPS kernel listed"), flush=True)
+          + ("; ".join(sorted(rows)) or "no attention, K2, K7, FPS or tail kernel listed"),
+          flush=True)
 
 
 def clicks(pred, xyz):
@@ -1119,10 +1170,11 @@ def tensors(tree) -> list:
     return [tree] if hasattr(tree, "is_cuda") else []
 
 
-def profile_encode(torch, np, model, label, counters, **override):
+def profile_encode(torch, np, model, label, counters, with_clicks=False, **override):
     """Phase 16: one encode of a serving path (with ``override`` of its
     grouping) under torch.profiler (``profile``), on a model built anew (the
-    timed phases keep none alive)."""
+    timed phases keep none alive); ``with_clicks``: then its clicks
+    (``profile_clicks``)."""
     from point_sam_tpu_torch.serving import Predictor
 
     pred = Predictor(model)
@@ -1136,8 +1188,56 @@ def profile_encode(torch, np, model, label, counters, **override):
     got = tensors(pred._state["geom"])
     check(len(got) == len(warm) and all(torch.equal(a, b) for a, b in zip(got, warm)),
           f"{label} encode: the profiled encode's geometry differs from the warm-up's")
+    if with_clicks:
+        profile_clicks(torch, pred, xyz, label, counters)
     del pred, warm, got
     torch.cuda.empty_cache()
+
+
+def profile_clicks(torch, pred, xyz, label, counters):
+    """A first click (3 masks, no mask prompt) and a refining click (a
+    negative point and the previous logits as mask prompt, 1 mask) on
+    ``pred``'s cloud under torch.profiler, by stage (``CLICK_STAGES``;
+    the tail's traced kernels held to the launches K4 / K11 count)."""
+    def first():
+        return pred.predict_masks(xyz[10:11], [1])
+
+    prev = first()[2][0, 0]  # warm-up
+
+    def refine():
+        return pred.predict_masks(xyz[[10, 700]], [1, 0], prev, False)
+
+    refine()
+    profile(torch, f"{label} first click", first, CLICK_STAGES, counters)
+    profile(torch, f"{label} refining click", refine, CLICK_STAGES, counters)
+
+
+def tail_digest(torch, UP) -> None:
+    """sha256 of the fp32 outputs of K4 and K11 on seeded inputs at the
+    tiny fp32 Predictor's and train step's kind of shape (D=256, C=3, M=2),
+    through the public wrappers."""
+    import hashlib
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale
+
+    B, M, G, N, D, C = 2, 2, 128, 3000, 256, 3
+    h1 = randn(B * M, G, D)
+    idx = torch.randint(0, G, (B, N, 3), device="cuda", generator=g, dtype=torch.int32)
+    idx[0, :5, 1] = idx[0, :5, 0]
+    w = torch.rand((B, N, 3), device="cuda", generator=g)
+    w = w / w.sum(-1, keepdim=True)
+    params = (1.0 + randn(D, scale=0.1), randn(D, scale=0.1), randn(D, D, scale=D ** -0.5),
+              randn(D, scale=0.1))
+    hyper = randn(B * M, C, D)
+    outs = {"K4": UP.interp_upscale_cuda(h1, idx, w, params, hyper, cdt=torch.float32),
+            "K11": UP.upscale_hyper_cuda(randn(B * M, N, D), params, hyper, cdt=torch.float32)}
+    torch.cuda.synchronize()
+    print("decoder tail fp32 digests: " + ", ".join(
+        f"{k} {hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]}"
+        for k, v in outs.items()), flush=True)
 
 
 def train_step_tiny(torch, np, P, PS, criterion, counters):
@@ -1269,12 +1369,18 @@ ENCODE_STAGES = (("K1 FPS + 3-NN",
                  ("K3 / K5 attention", ("mha_kernel",)),
                  ("torch top-k / sort (exact kNN, K9's bins)", ("topk", "TopK", "sort", "Sort")),
                  ("torch scatter / gather (scatter max, gathers)", ("scatter",)), MATMULS)
+# A click: the mask encoder's K2 (refining clicks), the decoder's
+# attention (cuBLAS matmuls and elementwise kernels), the tail (K4, or the
+# gather and K11), and the logits' copy to the host.
+CLICK_STAGES = (("K4 / K11 decode tail", ("interp_upscale",)),
+                ("K2 patch encoder", ("patch_encoder",)),
+                ("copy to the host", ("Memcpy DtoH",)), MATMULS)
 # Stage -> the kernel wrappers (launch counters) each of whose launches
 # runs at least one kernel of the stage.
 STAGE_WRAPPERS = {"K1 FPS + 3-NN": ("K1",), "K8 FPS": ("K8",),
                   "K9 FPS + 3-NN + kNN bins": ("K9",), "K10 3-NN weights": ("K10",),
                   "K2 patch encoder": ("K2",), "K3 / K5 attention": ("K3", "K5"),
-                  "K3 attention": ("K3",)}
+                  "K3 attention": ("K3",), "K4 / K11 decode tail": ("K4", "K11")}
 
 
 def profile(torch, label, fn, stages, counters=None, tries=3):
@@ -1520,6 +1626,7 @@ def main() -> int:
                      group=((4096, 512), (32, 32)), tokens=512, absent=("K4",),
                      group_number=4096)
     tail_routes(torch, UP, pred, counters)
+    tail_digest(torch, UP)
     del pred
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, hier_shapes, "hier")
@@ -1553,7 +1660,7 @@ def main() -> int:
     attention_bwd_edges(torch, A)
 
     train_profile()
-    profile_encode(torch, np, vit_l(), "flagship ViT-L", counters)
+    profile_encode(torch, np, vit_l(), "flagship ViT-L", counters, with_clicks=True)
     profile_encode(torch, np, giant(), "voronoi EVA-giant", counters)
     profile_encode(torch, np, hier(), "hier EVA02-L", counters)
     profile_encode(torch, np, hier(), "hier EVA02-L, group_number=4096", counters,
@@ -1588,8 +1695,9 @@ def main() -> int:
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=r["path"], shape=r["shape"]))
         for extra in ("ms_without_argmax", "ms_pass_c", "ms_pass_d", "bound_ms_pass_d",
-                      "ms_reduce", "fps_route", "us_per_step", "other_route", "ms_other_route",
-                      "us_per_step_other_route"):
+                      "ms_reduce", "fps_route", "us_per_step", "tail_route", "other_route",
+                      "ms_other_route", "device_ms_other_route", "us_per_step_other_route",
+                      "device_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -22,13 +22,15 @@ namespace psam {
 // [c0, c0 + cols) of a row-major bf16 matrix W (ldw elements a row) into
 // dst (ldd elements a row); entries at or past row rmax or column cmax are
 // zero-filled. cols, c0, ldw and cmax are multiples of 8, W is 16-byte
-// aligned. The caller commits the group.
+// aligned. The copy is shared by threads tid of nthreads (by default the
+// whole block). The caller commits the group.
 __device__ __forceinline__ void copy_tile_async(__nv_bfloat16* dst, int ldd,
                                                 const __nv_bfloat16* __restrict__ W, int ldw,
                                                 int r0, int rows, int rmax, int c0, int cols,
-                                                int cmax) {
+                                                int cmax, int tid = threadIdx.x,
+                                                int nthreads = blockDim.x) {
   const int chunks = cols >> 3;
-  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
+  for (int e = tid; e < rows * chunks; e += nthreads) {
     const int r = e / chunks, c = (e % chunks) << 3;
     const bool in = r0 + r < rmax && c0 + c < cmax;
     cp_async16(smem_u32(dst + r * ldd + c), in ? W + (size_t)(r0 + r) * ldw + c0 + c : W, in);

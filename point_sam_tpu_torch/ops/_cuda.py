@@ -46,7 +46,7 @@ _SIGNATURES = {
                            _I, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "psam_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "psam_interp_upscale": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "psam_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                            _P],
     "psam_patch_encoder_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -59,7 +59,7 @@ _SIGNATURES = {
     "psam_fps": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "psam_interp_weights": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "psam_attention_heads": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    "psam_upscale_hyper": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "psam_upscale_hyper": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "psam_fps_interp_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P],
 }

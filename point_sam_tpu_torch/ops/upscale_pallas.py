@@ -19,6 +19,12 @@ alone:
   a CPU tensor. JAX's third branch, the module path for widths its K11
   gate refuses, has no counterpart on the card: K11 takes every D <= 512.
 
+K4 and K11 take one of two routes, by the shapes alone (``upscale_route``):
+"mma", the Dense and the hypernet dot on the tensor cores with W resident
+in shared memory (bf16 at D a multiple of 64 up to 256, C <= 8: every
+model's bf16 tail), or "fma", fp32 tiles with the Dense on the FMA units
+(fp32, and bf16 at other widths).
+
 The reference has no backward kernel for either: both backwards recompute
 the chain in plain arithmetic and differentiate that (``_bwd``, ``_bwd2``),
 and so do the port's, on both devices. ``index`` and ``weight`` are
@@ -54,10 +60,37 @@ def interp_upscale_plain(h1, index, weight, params, hyper, *, cdt):
     return torch.matmul(hyper.to(cdt).float(), h.float().transpose(1, 2))
 
 
-@_cuda.counted
-def interp_upscale_cuda(h1, index, weight, params, hyper, *, cdt):
-    """Kernel K4 on the card; same contract as ``interp_upscale_plain``."""
+# The mma route's shapes (csrc/upscale.cu, interp_upscale_mma_kernel<D>):
+# bf16 at the widths of every model's tail, D = 128 or 256 (W [D, D] stays
+# in shared memory beside two 64-row tiles up to 256), and C <= 8 hypernet
+# rows, which fill one n16 pair of mma.sync tiles.
+MMA_WIDTHS = (128, 256)
+MMA_MAX_C = 8
+_ROUTES = {"fma": 0, "mma": 1}
+
+
+def upscale_route(D: int, C: int, cdt) -> str:
+    """The route of K4's and K11's launch, by the shapes alone: "mma" (the
+    Dense and the hypernet dot on the tensor cores, W resident in shared
+    memory) for bf16 at D in {128, 256} and C <= 8, which takes every
+    model's bf16 decoder tail; "fma" (fp32 tiles, the Dense on the FMA
+    units) otherwise: fp32, and bf16 at other D <= 512 or C > 8."""
+    if cdt == torch.bfloat16 and D in MMA_WIDTHS and C <= MMA_MAX_C:
+        return "mma"
+    return "fma"
+
+
+def _tail_args(params, hyper, cdt):
+    """The tail's parameters as the kernels take them: w and hyper in cdt,
+    ln_s, ln_b, b in fp32, all contiguous."""
     s, t, w, b = params
+    return (w.to(cdt).contiguous(), hyper.to(cdt).contiguous(),
+            *(v.float().contiguous() for v in (s, t, b)))
+
+
+def _launch_interp_upscale(h1, index, weight, params, hyper, cdt, route):
+    """Launch K4 on ``route`` ("mma" or "fma"); counts nothing. The wrapper
+    passes ``upscale_route``; a check may name the other route."""
     BM, G, D = h1.shape
     B, N, _ = index.shape
     if BM % B:
@@ -66,24 +99,53 @@ def interp_upscale_cuda(h1, index, weight, params, hyper, *, cdt):
     h1c = h1.to(cdt).contiguous()
     idx = index.int().contiguous()
     wts = weight.float().contiguous()
-    wc = w.to(cdt).contiguous()
-    hy = hyper.to(cdt).contiguous()
-    vecs = [v.float().contiguous() for v in (s, t, b)]
-    _cuda.require_cuda(h1c, idx, wts, wc, hy, *vecs)
+    wc, hy, s, t, b = _tail_args(params, hyper, cdt)
+    _cuda.require_cuda(h1c, idx, wts, wc, hy, s, t, b)
     out = torch.empty((BM, C, N), dtype=torch.float32, device=h1.device)
     p = _cuda.ptr
     code = _cuda.library().psam_interp_upscale(
-        p(h1c), p(idx), p(wts), p(vecs[0]), p(vecs[1]), p(wc), p(vecs[2]),
-        p(hy), p(out), B, BM // B, G, N, D, C, _cuda.dtype_code(cdt),
-        _cuda.stream())
+        p(h1c), p(idx), p(wts), p(s), p(t), p(wc), p(b), p(hy), p(out), B, BM // B, G, N, D,
+        C, _cuda.dtype_code(cdt), _ROUTES[route], _cuda.stream())
     _cuda.check("psam_interp_upscale", code)
-    _cuda.count_launch(interp_upscale_cuda, B=B, M=BM // B, G=G, N=N, D=D, C=C, cdt=str(cdt))
+    return out
+
+
+@_cuda.counted
+def interp_upscale_cuda(h1, index, weight, params, hyper, *, cdt):
+    """Kernel K4 on the card, on the route ``upscale_route`` gives
+    (recorded in its launch count); same contract as
+    ``interp_upscale_plain``."""
+    BM, G, D = h1.shape
+    B, N, _ = index.shape
+    C = hyper.shape[1]
+    route = upscale_route(D, C, cdt)
+    out = _launch_interp_upscale(h1, index, weight, params, hyper, cdt, route)
+    _cuda.count_launch(interp_upscale_cuda, B=B, M=BM // B, G=G, N=N, D=D, C=C, cdt=str(cdt),
+                       route=route)
+    return out
+
+
+def _launch_upscale_hyper(x, params, hyper, cdt, route):
+    """Launch K11 on ``route``; counts nothing (see ``_launch_interp_upscale``)."""
+    BM, N, D = x.shape
+    C = hyper.shape[1]
+    xc = x.to(cdt).contiguous()
+    wc, hy, s, t, b = _tail_args(params, hyper, cdt)
+    _cuda.require_cuda(xc, wc, hy, s, t, b)
+    out = torch.empty((BM, C, N), dtype=torch.float32, device=x.device)
+    p = _cuda.ptr
+    code = _cuda.library().psam_upscale_hyper(
+        p(xc), p(s), p(t), p(wc), p(b), p(hy), p(out), BM, N, D, C, _cuda.dtype_code(cdt),
+        _ROUTES[route], _cuda.stream())
+    _cuda.check("psam_upscale_hyper", code)
     return out
 
 
 @_cuda.counted
 def upscale_hyper_cuda(x, params, hyper, *, cdt):
-    """Kernel K11 on the card; same contract as ``upscale_hyper_reference``.
+    """Kernel K11 on the card, on the route ``upscale_route`` gives
+    (recorded in its launch count); same contract as
+    ``upscale_hyper_reference``.
 
     Args:
         x: [BM, N, D] interpolated, Dense_0-projected features.
@@ -93,21 +155,11 @@ def upscale_hyper_cuda(x, params, hyper, *, cdt):
     Returns:
         mask logits [BM, C, N] fp32.
     """
-    s, t, w, b = params
     BM, N, D = x.shape
     C = hyper.shape[1]
-    xc = x.to(cdt).contiguous()
-    wc = w.to(cdt).contiguous()
-    hy = hyper.to(cdt).contiguous()
-    vecs = [v.float().contiguous() for v in (s, t, b)]
-    _cuda.require_cuda(xc, wc, hy, *vecs)
-    out = torch.empty((BM, C, N), dtype=torch.float32, device=x.device)
-    p = _cuda.ptr
-    code = _cuda.library().psam_upscale_hyper(
-        p(xc), p(vecs[0]), p(vecs[1]), p(wc), p(vecs[2]), p(hy), p(out), BM, N, D, C,
-        _cuda.dtype_code(cdt), _cuda.stream())
-    _cuda.check("psam_upscale_hyper", code)
-    _cuda.count_launch(upscale_hyper_cuda, BM=BM, N=N, D=D, C=C, cdt=str(cdt))
+    route = upscale_route(D, C, cdt)
+    out = _launch_upscale_hyper(x, params, hyper, cdt, route)
+    _cuda.count_launch(upscale_hyper_cuda, BM=BM, N=N, D=D, C=C, cdt=str(cdt), route=route)
     return out
 
 

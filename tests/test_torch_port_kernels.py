@@ -15,7 +15,8 @@ kernels); K5 as K3. K1 and K8 are exact: indices equal and d^2 bit-equal,
 on both routes (``fps_route``: a cluster a row, or the cooperative grid).
 K10: indices equal, weights within 1e-6 (the same fp32 operations; only
 the division may round differently). K9 is exact (K1's outputs and the
-kNN ids). K11 as K4. The backward
+kNN ids). K11 as K4 (fp32 1e-4), on both routes of ``upscale_route``
+(bf16 "mma" at D 128, 256; "fma" in fp32 and at D 384). The backward
 kernels: K6 1e-5 (fp32) / 2e-2 (bf16) of the largest grad; K7 in fp32 1e-4
 of each grad's largest entry, in bf16 5e-2 in norm (||diff|| / ||plain||):
 both sides route the max-pool grads to the rows K2 saved, but K7
@@ -471,17 +472,41 @@ def test_k10_kernel_matches_plain(cuda, B, N, G, grid):
     np.testing.assert_allclose(n(gw), n(ww), atol=1e-6)
 
 
+# (dtype, D, M, C, N, route): the fp32 cases and D=384 on the fma route;
+# bf16 at the models' D (128, 256) on the mma route at C 1, 3 and 8, M 1
+# and 2, N off the 64-row tile (33, 300, 1000) and across several of them.
+K4_CASES = [
+    (torch.float32, 256, 2, 3, 300, "fma"), (torch.float32, 256, 1, 1, 33, "fma"),
+    (torch.bfloat16, 256, 2, 3, 300, "mma"), (torch.bfloat16, 256, 1, 1, 33, "mma"),
+    (torch.bfloat16, 256, 2, 8, 1000, "mma"), (torch.bfloat16, 256, 1, 3, 4097, "mma"),
+    (torch.bfloat16, 128, 2, 3, 300, "mma"), (torch.bfloat16, 128, 1, 1, 1000, "mma"),
+    (torch.bfloat16, 128, 2, 8, 64, "mma"), (torch.bfloat16, 384, 2, 3, 300, "fma"),
+]
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def last_route(wrapper):
+    """The route the wrapper's latest launch key recorded."""
+    return dict(list(wrapper.shapes)[-1])["route"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("m,c,nq", [(2, 3, 300), (1, 1, 33)])
-def test_k4_kernel_matches_plain(cuda, dtype, tol, m, c, nq):
+@pytest.mark.parametrize("dtype,d,m,c,nq,route", K4_CASES)
+def test_k4_kernel_matches_plain(cuda, dtype, d, m, c, nq, route):
+    """K4 on the route ``upscale_route`` gives, against its plain version,
+    with duplicate neighbours of every kind: i0 == i1, i1 == i2, all three."""
     rng = np.random.default_rng(4)
-    h1, idx, w, params, hyper = upscale_inputs(rng, m=m, c=c, nq=nq, d=256)
+    h1, idx, w, params, hyper = upscale_inputs(rng, m=m, c=c, nq=nq, d=d)
+    idx[1, :7, 2] = idx[1, :7, 1]
+    idx[0, 5:12, 1:] = idx[0, 5:12, :1]
     h1, hyper = to(h1, cuda, dtype), to(hyper, cuda, dtype)
     idx, w, params = to(idx, cuda), to(w, cuda), to(params, cuda)
+    UP.interp_upscale_cuda.shapes.clear()
     got = UP.interp_upscale_cuda(h1, idx, w, params, hyper, cdt=dtype)
+    torch.cuda.synchronize()
+    assert last_route(UP.interp_upscale_cuda) == route == UP.upscale_route(d, c, dtype)
     assert got.dtype == torch.float32 and got.shape == (2 * m, c, nq)
-    assert_rel(got, UP.interp_upscale_plain(h1, idx, w, params, hyper, cdt=dtype), tol)
+    assert_rel(got, UP.interp_upscale_plain(h1, idx, w, params, hyper, cdt=dtype), TOL[dtype])
 
 
 def assert_norm(got, want, rel):
@@ -792,16 +817,51 @@ def test_k9_kernel_matches_plain(cuda, case):
         assert torch.equal(g, w)
 
 
+# (dtype, D, BM, C, N, route), as K4_CASES.
+K11_CASES = [
+    (torch.float32, 128, 2, 3, 1000, "fma"), (torch.bfloat16, 128, 2, 3, 1000, "mma"),
+    (torch.bfloat16, 128, 1, 1, 33, "mma"), (torch.bfloat16, 128, 2, 8, 4097, "mma"),
+    (torch.bfloat16, 256, 4, 3, 300, "mma"), (torch.bfloat16, 256, 1, 1, 64, "mma"),
+    (torch.bfloat16, 384, 2, 3, 300, "fma"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_k11_kernel_matches_plain(cuda, dtype, tol):
+@pytest.mark.parametrize("dtype,d,bm,c,nq,route", K11_CASES)
+def test_k11_kernel_matches_plain(cuda, dtype, d, bm, c, nq, route):
     rng = np.random.default_rng(10)
-    x = to(rng.standard_normal((2, 1000, 128)).astype(np.float32), cuda, dtype)
-    _, _, _, params, hyper = to(upscale_inputs(rng, b=1, m=2, d=128), cuda)
+    x = to(rng.standard_normal((bm, nq, d)).astype(np.float32), cuda, dtype)
+    _, _, _, params, hyper = to(upscale_inputs(rng, b=1, m=bm, c=c, d=d), cuda)
+    UP.upscale_hyper_cuda.shapes.clear()
     got = UP.upscale_hyper_cuda(x, params, hyper, cdt=dtype)
     torch.cuda.synchronize()
-    assert got.shape == (2, 3, 1000) and got.dtype == torch.float32
-    assert_rel(got, UP.upscale_hyper_reference(x, params, hyper, cdt=dtype), tol)
+    assert last_route(UP.upscale_hyper_cuda) == route == UP.upscale_route(d, c, dtype)
+    assert got.shape == (bm, c, nq) and got.dtype == torch.float32
+    assert_rel(got, UP.upscale_hyper_reference(x, params, hyper, cdt=dtype),
+               1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K4", "K11"])
+def test_tail_routes_agree(cuda, kernel):
+    """At a bf16 serve-like shape both routes of K4 / K11, forced through
+    the launch helpers, match the plain version and each other."""
+    rng = np.random.default_rng(12)
+    h1, idx, w, params, hyper = to(upscale_inputs(rng, b=1, m=1, g=256, nq=5000, d=256), cuda)
+    h1, hyper = h1.to(torch.bfloat16), hyper.to(torch.bfloat16)
+    if kernel == "K4":
+        want = UP.interp_upscale_plain(h1, idx, w, params, hyper, cdt=torch.bfloat16)
+        got = [UP._launch_interp_upscale(h1, idx, w, params, hyper, torch.bfloat16, r)
+               for r in ("mma", "fma")]
+    else:
+        x = h1[:, idx[0, :, 0].long()]
+        want = UP.upscale_hyper_reference(x, params, hyper, cdt=torch.bfloat16)
+        got = [UP._launch_upscale_hyper(x, params, hyper, torch.bfloat16, r)
+               for r in ("mma", "fma")]
+    torch.cuda.synchronize()
+    for g in got:
+        assert_rel(g, want, 2e-2)
+    assert_rel(got[0], got[1], 2e-2)
 
 
 @pytest.mark.cuda

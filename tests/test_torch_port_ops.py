@@ -292,3 +292,32 @@ def test_interp_upscale_plain_matches_pallas(rng):
                                   cdt=torch.float32)
     assert got.shape == (4, 3, 300)
     np.testing.assert_allclose(n(got), np.asarray(want), atol=1e-4)
+
+
+# The decoder tail's shapes on every path (D, C, compute dtype): the ViT-L,
+# voronoi and fused-geometry serving paths and training (D=256), hier and
+# hier4096 (D=128; K11 there), at the first click's C=3 and a refining
+# click's C=1; the tiny fp32 models on the card; bf16 off the mma shapes.
+@pytest.mark.parametrize("D,C,cdt,route", [
+    (256, 3, torch.bfloat16, "mma"), (256, 1, torch.bfloat16, "mma"),
+    (128, 3, torch.bfloat16, "mma"), (128, 1, torch.bfloat16, "mma"),
+    (256, 8, torch.bfloat16, "mma"), (64, 3, torch.bfloat16, "fma"),
+    (192, 3, torch.bfloat16, "fma"),
+    (256, 3, torch.float32, "fma"), (128, 1, torch.float32, "fma"),
+    (384, 3, torch.bfloat16, "fma"), (512, 3, torch.bfloat16, "fma"),
+    (320, 1, torch.bfloat16, "fma"), (96, 3, torch.bfloat16, "fma"),
+    (256, 9, torch.bfloat16, "fma")])
+def test_upscale_route_by_shape(D, C, cdt, route):
+    """K4 and K11 take the mma route for bf16 at D = 128 or 256 and
+    C <= 8, the fma route otherwise (fp32, other widths)."""
+    assert UP.upscale_route(D, C, cdt) == route
+
+
+def test_upscale_route_matches_the_kernel():
+    """The mma route's limits are what csrc/upscale.cu instantiates and
+    accepts (the widths of its switch, kMaxC), so the route never hands the
+    kernel a shape it refuses."""
+    src = (Path(UP.__file__).resolve().parents[1] / "csrc" / "upscale.cu").read_text()
+    widths = {int(d) for d in re.findall(r"return launch_mma<(\d+), kGather>", src)}
+    assert widths == {d for d in range(1, 1025) if UP.upscale_route(d, 1, torch.bfloat16) == "mma"}
+    assert int(re.search(r"constexpr int kMaxC = (\d+);", src)[1]) == UP.MMA_MAX_C
