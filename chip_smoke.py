@@ -13,9 +13,10 @@ last line):
    ``cuobjdump --dump-resource-usage`` of the built library (reported, not
    gated; K7's four: the pass-C mma kernel, the pass-D mma kernel at both of
    its dw1a register tilings, and the one-launch kernel; FPS: the cluster
-   route's selection kernel for K8 and K1, K1's 3-NN kernel, and the grid
-   route's cooperative kernel in its three modes; K4 / K11: the mma route's
-   kernel at D 128 and 256 and the fma route's, <true> K4, <false> K11);
+   route's selection kernel for K8 and K1, the grid route's cooperative
+   kernel in its two modes, K9's bins kernel, and the 3-NN scan that K1 /
+   K9 (<false>) and K10 (<true>) share; K4 / K11: the mma route's kernel
+   at D 128 and 256 and the fma route's, <true> K4, <false> K11);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
    so the decoder tail takes K4): the Predictor on the CPU (plain versions)
    and on the card (kernels), same weights, cloud and 3 clicks;
@@ -70,10 +71,14 @@ last line):
    then the sha256 of K4's and K11's fp32 outputs on seeded inputs
    (``tail_digest``);
 12. the fused-geometry serving path: the ViT-L Predictor of 4 built with
-   ``knn_method="approx"``: K9 once per encode (FPS, 3-NN
-   and the binned kNN in one pass, then a top-k over 4096 bins) and
-   neither K1 nor the exact kNN; then as 5 for its kernels, K9 held to
-   equal outputs and to a recall >= 0.9 against the exact kNN;
+   ``knn_method="approx"``: K9 once per encode (K1's launch on the padded
+   cloud, on the route ``fps_route`` gives, then the bins kernel over its
+   centres and a top-k over 4096 bins) and neither K1's wrapper nor the
+   exact kNN; then as 5 for its kernels: K9's five outputs and its bins
+   (cd / ci, given K1's centres) held bit for bit to their plain versions,
+   its kNN to a recall >= 0.9 against the exact kNN; its route and time a
+   selection step printed, and the bins kernel and the top-k also timed
+   alone (the bins with their own bound);
 13. tiny train step in fp32 (the ViT of 3, so K3 and K6 run; G=32, so the
    forward's tail is K11): the CPU with the plain versions against the
    card with the kernels, same weights, batch and clicks; then the card's
@@ -389,15 +394,39 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
                   f"k={k})", flush=True)
             return 0.0
 
+        # K9's parts on the padded cloud: the bins kernel given K1's
+        # centres (held to ``knn_bins_plain`` bit for bit), and the top-k
+        # given the bins; each timed alone.
+        l_lanes = 512
+        pts_p, v = F._knn_cells(pts, valid, l_lanes)
+        n_pad = pts_p.shape[1]
+        centers = F._launch(pts_p, G, v, F.fps_route(n_pad), interp=True)[1]
+        bins = lambda: F.knn_bins_cuda(pts_p, v, centers, l_lanes)  # noqa: E731
+        cd, ci = bins()
+
+        def all_equal(got, want):
+            equal_and_recall(got, want)
+            want_d, want_i = F.knn_bins_plain(pts_p, v, centers, l_lanes)
+            got_d, got_i = bins()
+            check(torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+                  and torch.equal(got_i, want_i), "K9 bins cd / ci differ from knn_bins_plain")
+            return 0.0
+
         # K1's ~10 fp32 operations per real point per step plus the bin
         # fold's ~3 (mask, compare, select); the cd / ci bins [G, 4096]
-        # written once and the [G, k] ids.
-        nbins = 4096
+        # written once and the [G, k] ids. The bins alone: each (real
+        # point, centre) pair's distance (6) and fold (3); the padded cloud
+        # and its validity read once, cd / ci written once.
+        nbins = 8 * l_lanes
         nbytes = B * (N * (3 * 4 + (valid is not None)) + G * 16 + N * 3 * 8 + G * nbins * 8
                       + G * k * 4)
+        bins_bytes = B * (n_pad * 13 + G * 12 + G * nbins * 8)
         return dict(run=lambda: F.fps_interp_knn_cuda(pts, G, k, valid=valid),
                     plain=lambda: F.fps_interp_knn_plain(pts, G, k, valid=valid),
-                    compare=equal_and_recall, work=(nbytes, {"fp32": 13.0 * B * n_real * G}))
+                    compare=all_equal, work=(nbytes, {"fp32": 13.0 * B * n_real * G}),
+                    steps=G - 1,
+                    parts={"bins": (bins, (bins_bytes, {"fp32": 9.0 * B * n_real * G})),
+                           "top_k": (lambda: F.bins_top_k(cd, ci, k, N), None)})
 
     if name == "K10":
         B, N, G = key["B"], key["N"], key["G"]
@@ -791,7 +820,13 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
                            device_ms_other_route=time_ms(torch, case["other"], ahead=True))
             if "route" in case:  # K4 / K11
                 row["tail_route"] = case["route"]
-            if "steps" in case:  # K1 / K8: per selection step, on both routes
+            parts = case.get("parts", {})
+            for part, (fn, work) in parts.items():  # K9's bins and top-k alone
+                row[f"ms_{part}"] = time_ms(torch, fn)
+                row[f"device_ms_{part}"] = time_ms(torch, fn, ahead=True)
+                if work is not None:
+                    row[f"bound_ms_{part}"] = bound(*work)[0]
+            if "steps" in case:  # K1 / K8 / K9: per selection step, on both routes
                 steps = max(1, case["steps"])
                 row.update(fps_route=key["route"], us_per_step=row["ms"] * 1e3 / steps)
                 if "other" in case:
@@ -801,6 +836,7 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
                 row.update(ms_pass_c=c_ms, ms_pass_d=cd_ms - c_ms, ms_reduce=row["ms"] - cd_ms)
                 row["bound_ms_pass_d"] = bound(*case["pass_d_work"])[0]
             row["bound_ms"], row["bound_by"] = bound(*case["work"])
+            parts = list(parts)  # the names: the tensors go with the case
             del case
             torch.cuda.empty_cache()
             lib = "" if row["library_ms"] is None else f"  library {row['library_ms']:.4f} ms"
@@ -816,6 +852,11 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
                 if "ms_other_route" in row:
                     lib += (f"; {row['other_route']} route {row['ms_other_route']:.4f} ms, "
                             f"device {row['device_ms_other_route']:.4f} ms")
+            for part in parts:
+                lib += (f"  {part} alone {row[f'ms_{part}']:.4f} ms (device "
+                        f"{row[f'device_ms_{part}']:.4f} ms"
+                        + (f", bound {row[f'bound_ms_{part}']:.4f} ms)"
+                           if f"bound_ms_{part}" in row else ")"))
             if "ms_pass_c" in row:
                 lib += (f"  pass C {row['ms_pass_c']:.4f} ms, pass D {row['ms_pass_d']:.4f} ms "
                         f"(its bound {row['bound_ms_pass_d']:.4f} ms), "
@@ -976,9 +1017,10 @@ def attention_bwd_edges(torch, A) -> None:
 
 def resource_usage(lib) -> None:
     """Registers, stack and local bytes (spills) of each attention kernel,
-    each K2 and K7 kernel, each FPS kernel (both routes of K1 / K8, and
-    K9) and each decoder-tail kernel (K4 / K11 on both routes: <true> is K4,
-    <false> K11) in the built library, from ``cuobjdump
+    each K2 and K7 kernel, each FPS kernel (both routes of K1 / K8, K9's
+    bins, the 3-NN scan of K1 / K9 and K10) and each decoder-tail kernel
+    (K4 / K11 on both routes: <true> is K4, <false> K11) in the built
+    library, from ``cuobjdump
     --dump-resource-usage``. Reported only: a missing tool or an unknown
     format prints a note and gates nothing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -994,7 +1036,8 @@ def resource_usage(lib) -> None:
         m = re.search(r"\d+((?:attn_bwd|mha_kernel)\w*?)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
         k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd(?:_c_mma|_d_mma)?)?_kernel)"
                        r"(?:I(f|13__nv_bfloat16|Li\d+E)E)?", mangled)
-        fk = re.search(r"\d+(fps_(?:interp|cluster|nn3)_kernel)(?:I((?:L[bi]\d+E)+)E)?", mangled)
+        fk = re.search(r"\d+((?:fps_interp|fps_cluster|nn3|knn_bins)_kernel)"
+                       r"(?:I((?:L[bi]\d+E)+)E)?", mangled)
         up = re.search(r"\d+(interp_upscale(?:_mma)?_kernel)I((?:f|13__nv_bfloat16|L[bi]\d+E)+)E",
                        mangled)
         if up:
@@ -1357,15 +1400,18 @@ TRAIN_STAGES = (("K7 pass C (mma)", ("patch_encoder_bwd_c_mma",)),
                 ("K7 one launch", ("patch_encoder_bwd_kernel",)),
                 ("K2 patch encoder", ("patch_encoder",)), *K6_STAGES,
                 ("K3 attention", ("mha_kernel",)), ("K4 / K11 decode tail", ("interp_upscale",)),
-                ("K1 FPS + 3-NN", ("fps_interp", "fps_cluster", "fps_nn3")), MATMULS)
-# csrc/fps_interp.cu: on the grid route fps_interp_kernel<0> is K8, <1> K1,
-# <2> K9 (its template mode); on the cluster route fps_cluster_kernel<false,
-# R> is K8, and <true, R> with fps_nn3_kernel (the 3-NN launch) K1.
-ENCODE_STAGES = (("K1 FPS + 3-NN",
-                  ("fps_interp_kernel<1>", "fps_cluster_kernel<true", "fps_nn3_kernel")),
+                ("K1 / K9 FPS + 3-NN", ("fps_interp", "fps_cluster", "nn3_kernel<false")),
+                MATMULS)
+# csrc/fps_interp.cu: on the grid route fps_interp_kernel<0> is K8, <1> K1;
+# on the cluster route fps_cluster_kernel<false, R> is K8, and <true, R>
+# with nn3_kernel<false> (csrc/nn3.cuh, the 3-NN launch) K1. K9 runs K1's
+# launch, then knn_bins_kernel; K10 is nn3_kernel<true>.
+ENCODE_STAGES = (("K1 / K9 FPS + 3-NN",
+                  ("fps_interp_kernel<1>", "fps_cluster_kernel<true", "nn3_kernel<false")),
                  ("K8 FPS", ("fps_interp_kernel<0>", "fps_cluster_kernel<false")),
-                 ("K9 FPS + 3-NN + kNN bins", ("fps_interp_kernel<2>",)),
-                 ("K10 3-NN weights", ("interp_kernel",)), ("K2 patch encoder", ("patch_encoder",)),
+                 ("K9 kNN bins", ("knn_bins_kernel",)),
+                 ("K10 3-NN weights", ("nn3_kernel<true",)),
+                 ("K2 patch encoder", ("patch_encoder",)),
                  ("K3 / K5 attention", ("mha_kernel",)),
                  ("torch top-k / sort (exact kNN, K9's bins)", ("topk", "TopK", "sort", "Sort")),
                  ("torch scatter / gather (scatter max, gathers)", ("scatter",)), MATMULS)
@@ -1377,8 +1423,8 @@ CLICK_STAGES = (("K4 / K11 decode tail", ("interp_upscale",)),
                 ("copy to the host", ("Memcpy DtoH",)), MATMULS)
 # Stage -> the kernel wrappers (launch counters) each of whose launches
 # runs at least one kernel of the stage.
-STAGE_WRAPPERS = {"K1 FPS + 3-NN": ("K1",), "K8 FPS": ("K8",),
-                  "K9 FPS + 3-NN + kNN bins": ("K9",), "K10 3-NN weights": ("K10",),
+STAGE_WRAPPERS = {"K1 / K9 FPS + 3-NN": ("K1", "K9"), "K8 FPS": ("K8",),
+                  "K9 kNN bins": ("K9",), "K10 3-NN weights": ("K10",),
                   "K2 patch encoder": ("K2",), "K3 / K5 attention": ("K3", "K5"),
                   "K3 attention": ("K3",), "K4 / K11 decode tail": ("K4", "K11")}
 
@@ -1697,7 +1743,8 @@ def main() -> int:
         for extra in ("ms_without_argmax", "ms_pass_c", "ms_pass_d", "bound_ms_pass_d",
                       "ms_reduce", "fps_route", "us_per_step", "tail_route", "other_route",
                       "ms_other_route", "device_ms_other_route", "us_per_step_other_route",
-                      "device_ms"):
+                      "device_ms", "ms_bins", "device_ms_bins", "bound_ms_bins", "ms_top_k",
+                      "device_ms_top_k"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 // K1: farthest point sampling fused with the exact 3-NN interp search,
-// K8: the same selection loop alone, and K9: K1 plus a binned kNN fold.
+// K8: the same selection loop alone, and K9: K1 plus a binned kNN.
 //
 // K1 replaces point_sam_tpu/ops/fps_pallas.py::fps_interp_pallas
 // (_fps_interp_kernel); K8 replaces fps_pallas (_fps_kernel), the
@@ -7,13 +7,9 @@
 // best-3 state, its per-step updates and its outputs compiled out
 // (template mode kSelect), so a block keeps 16 B per point instead of 40.
 // K9 replaces fps_interp_knn_pallas (_fps_interp_knn_kernel), the fused
-// tokenizer geometry: K1's selection and interp, bit for bit, and at every
-// step the masked distance field of that step's centre folded into
-// 8 * l_lanes bins (point n of the n_pad-point row lies in bin
-// (n / n8, (n % n8) % l_lanes), n8 = n_pad / 8): per bin the smallest
-// distance, ties to the smallest point id, padded and invalid points at
-// +inf. cd / ci [B, G, 8 * l_lanes] receive each step's bins; the top-k
-// over them is the caller's (as in the JAX wrapper).
+// tokenizer geometry: K1's launch on the padded cloud (its selection and
+// interp), then knn_bins_kernel over the centres (see below); the top-k
+// over the bins is the caller's (as in the JAX wrapper).
 //
 // Per batch row: G sequential selection steps from the first valid point
 // (padding at -inf, max value wins, the smallest index wins ties), the
@@ -27,7 +23,7 @@
 // arithmetic is ~10 instructions a point. Two routes, chosen by the
 // caller from N alone (ops/fps.py::fps_route):
 //
-// "cluster" (K1 and K8 for rows of up to kClusterPoints = 131072 points):
+// "cluster" (rows of up to kClusterPoints = 131072 points):
 // fps_cluster_kernel, one thread-block cluster of C CTAs x 256 threads a
 // row. One CTA where its registers hold the row (N <= 8192): no exchange
 // between CTAs. Else the row spreads over 16 CTAs (the non-portable
@@ -48,61 +44,67 @@
 // No cluster-wide barrier runs inside the loop: slots and mbarriers are
 // double-buffered by step parity, and a CTA cannot run two steps ahead of
 // a peer, since each step needs every peer's candidate of the step
-// before. K1's 3-NN then runs as a second launch over all SMs,
-// fps_nn3_kernel: one thread a point, the G centres through shared memory
-// in order, the same d^2 and strict-< insertion as the fused loop, so
-// interp_idx / interp_d2 are bit-equal to it.
+// before. K1's 3-NN then runs as a second launch over all SMs, nn3.cuh's
+// scan (shared with K10): the G centres through shared memory in order,
+// the same d^2 and strict-< insertion as the fused loop of the grid
+// route, so interp_idx / interp_d2 are bit-equal to it.
 //
-// "grid" (larger rows, e.g. the 524288 bucket; and K9 always):
-// fps_interp_kernel, one cooperative launch over point chunks. Each block
-// keeps its chunk's xyz, running min distance and (K1, K9) best-3 in shared
-// memory for the whole loop; every step is a block-local (max, smallest
-// index) reduction, one grid.sync(), and a deterministic reduction of the
-// per-block candidates that every block does for itself. The loop runs G
-// distance passes, so the last centre's distances also reach the best-3.
-// A row's points must fit the shared memory of the co-resident blocks (40
-// B each: about 765k points per row on an H100 at B=1); beyond that the
-// launch is refused and the wrapper raises. K8 fits about 1.9M points per
-// row.
+// "grid" (larger rows, e.g. the 524288 bucket and K9's rows above 131072
+// padded points): fps_interp_kernel, one cooperative launch over point
+// chunks. Each block keeps its chunk's xyz, running min distance and (K1)
+// best-3 in shared memory for the whole loop; every step is a block-local
+// (max, smallest index) reduction, one grid.sync(), and a deterministic
+// reduction of the per-block candidates that every block does for itself.
+// The loop runs G distance passes, so the last centre's distances also
+// reach the best-3. A row's points must fit the shared memory of the
+// co-resident blocks (40 B each: about 765k points per row on an H100 at
+// B=1); beyond that the launch is refused and the wrapper raises. K8 fits
+// about 1.9M points per row.
 //
-// K9's fold: a bin's members lie l_lanes points apart, across K1's
-// contiguous chunks, so K9 hands each block whole bins instead (its points
-// are the members of bins [blk * bpb, (blk + 1) * bpb), slot q * chunks + j
-// holding member j of local bin q) and keeps every slot's original id: the
-// fold is then block-local (one warp per bin, shuffles), with no atomics,
-// and the argmax still breaks ties on original ids. Two more words per
-// point (the masked field and the id): 48 B.
+// K9's bins (knn_bins_kernel): the padded row of N points is the Pallas
+// kernel's cell layout [8, n8], n8 = N / 8, and bin (r, l), l < l_lanes,
+// holds the chunks = n8 / l_lanes points r * n8 + j * l_lanes + l. For
+// centre g, cd[g, bin] is the smallest distance of the bin's members to it
+// (+inf at invalid points) and ci[g, bin] that member's id, ties to the
+// smallest id; an all-invalid bin gives (+inf, member 0). That is the
+// Pallas kernel's per-step fold, which reads only the distance field of
+// centre g and the validity, so it is a function of the centres and the
+// points alone and runs after the selection. What bounds it: the G x N
+// pairs' ~9 instructions each (0.27 G pairs at the serve shape), and the
+// cd / ci writes (64 MB there). Design: a block takes 32 consecutive bins of
+// one cell row, whose members are contiguous for each j, and stages them in
+// shared memory as float4 (an invalid point at x = +inf, so its distance to
+// any finite centre is +inf: the reference's mask, bit for bit), up to
+// kBinTile members a bin at a time; each thread owns one bin and holds
+// kBinCentres centres in registers, so one conflict-free LDS.128 of a
+// member serves that many centres, and a warp's stores of one centre are 32
+// consecutive words. The block's centres are a slice of the G, so the grid
+// fills the card. Members are scanned in ascending j with strict <; with
+// more than kBinTile members, a later tile starts from the bins that the
+// thread itself wrote for the tile before.
 //
 // Bit-exactness: indices equal the JAX fps_xla / Pallas kernel only if d^2
-// has the same bits. XLA compiles the reference's (dx^2 + dy^2) + dz^2 into
-// fma(dz, dz, fma(dx, dx, dy * dy)); the kernels write exactly that with _rn
-// intrinsics (sq_dist), which nvcc never re-associates or contracts
-// differently. The cluster route compares order_key(d) (an unsigned that
-// orders as the float does; d is never -0 or NaN) where the grid route
-// compares floats: the same order, so the same picks.
+// has the same bits: every kernel here computes it with nn3.cuh's sq_dist.
+// The cluster route compares order_key(d) (an unsigned that orders as the
+// float does; d is never -0 or NaN) where the grid route compares floats:
+// the same order, so the same picks.
 #include <cooperative_groups.h>
 #include <climits>
 
 #include "common.cuh"
+#include "nn3.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using psam::sq_dist;
 
 constexpr int kThreads = 512;
 constexpr int kMaxBlocksPerRow = 4096;  // capacity of the candidate scratch
 
 __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
   return v1 > v2 || (v1 == v2 && i1 < i2);
-}
-
-// d^2 of a point to a centre with the reference's bits (see the header).
-__device__ __forceinline__ float sq_dist(float x, float y, float z, float cx, float cy,
-                                         float cz) {
-  const float dx = __fsub_rn(x, cx);
-  const float dy = __fsub_rn(y, cy);
-  const float dz = __fsub_rn(z, cz);
-  return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
 }
 
 // Block-wide (max value, smallest index); every thread gets the result.
@@ -134,26 +136,7 @@ __device__ void block_argmax(float& v, int& i, float* sv, int* si) {
   __syncthreads();
 }
 
-enum Mode { kSelect = 0, kInterpMode = 1, kKnnMode = 2 };
-
-// K9's bin layout: n8 = n_pad / 8 points per row of the cell layout,
-// l_lanes bins per row, chunks = n8 / l_lanes members per bin, bpb bins per
-// block, nbins = 8 * l_lanes.
-struct Bins {
-  int n8, l_lanes, chunks, bpb, nbins;
-  float* cd;
-  int* ci;
-};
-
-// Lexicographic (distance, id) minimum of a warp; every lane gets it.
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
-}
+enum Mode { kSelect = 0, kInterpMode = 1 };
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
@@ -161,9 +144,8 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
                   const int* __restrict__ first, int N, int G, int chunk, int nblk,
                   int* __restrict__ idx_out, float* __restrict__ centers_out,
                   int* __restrict__ interp_idx, float* __restrict__ interp_d2,
-                  float* cand_v, int* cand_i, Bins bins) {
-  constexpr bool kInterp = kMode != kSelect;
-  constexpr bool kKnn = kMode == kKnnMode;
+                  float* cand_v, int* cand_i) {
+  constexpr bool kInterp = kMode == kInterpMode;
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + chunk;
@@ -175,26 +157,17 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
   int* bi0 = reinterpret_cast<int*>(bd2 + chunk);
   int* bi1 = bi0 + chunk;
   int* bi2 = bi1 + chunk;
-  float* sdm = reinterpret_cast<float*>(bi2 + chunk);  // K9: masked field
-  int* sid = reinterpret_cast<int*>(sdm + chunk);     // K9: original ids
   __shared__ float red_v[32];
   __shared__ int red_i[32];
 
   cg::grid_group grid = cg::this_grid();
   const int b = blockIdx.y, blk = blockIdx.x, tid = threadIdx.x;
   const int start = blk * chunk;
-  const int bin0 = blk * bins.bpb;
-  const int cnt = kKnn ? max(0, min(bins.bpb, bins.nbins - bin0)) * bins.chunks
-                       : max(0, min(chunk, N - start));
+  const int cnt = max(0, min(chunk, N - start));
   const float* P = pts + (size_t)b * N * 3;
 
   for (int p = tid; p < cnt; p += blockDim.x) {
-    int n = start + p;
-    if (kKnn) {
-      const int bin = bin0 + p / bins.chunks, j = p % bins.chunks;
-      n = (bin / bins.l_lanes) * bins.n8 + j * bins.l_lanes + bin % bins.l_lanes;
-      sid[p] = n;
-    }
+    const int n = start + p;
     sx[p] = P[3 * n];
     sy[p] = P[3 * n + 1];
     sz[p] = P[3 * n + 2];
@@ -244,31 +217,9 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
           bi2[p] = g;
         }
       }
-      const int id = kKnn ? sid[p] : start + p;
-      if (kKnn) sdm[p] = smind[p] == -INFINITY ? INFINITY : d;  // invalid: +inf
-      if (better(m, id, bv, bi)) { bv = m; bi = id; }
+      if (better(m, start + p, bv, bi)) { bv = m; bi = start + p; }
     }
-    if (kKnn) {
-      // The fold of centre g: one warp per bin, lanes over its members.
-      __syncthreads();
-      const int lane = tid & 31, nb = cnt / bins.chunks;
-      for (int q = tid >> 5; q < nb; q += blockDim.x >> 5) {
-        float v = INFINITY;
-        int i = INT_MAX;
-        for (int j = lane; j < bins.chunks; j += 32) {
-          const float dv = sdm[q * bins.chunks + j];
-          const int di = sid[q * bins.chunks + j];
-          if (dv < v || (dv == v && di < i)) { v = dv; i = di; }
-        }
-        warp_argmin(v, i);
-        if (lane == 0) {
-          const size_t o = ((size_t)b * G + g) * bins.nbins + bin0 + q;
-          bins.cd[o] = v;
-          bins.ci[o] = i;
-        }
-      }
-    }
-    if (g + 1 == G) break;  // the last pass only feeds the best-3 (K1, K9)
+    if (g + 1 == G) break;  // the last pass only feeds the best-3 (K1)
 
     block_argmax(bv, bi, red_v, red_i);
     // Double-buffered candidates: a fast block writing step g+1 never
@@ -293,7 +244,7 @@ fps_interp_kernel(const float* __restrict__ pts, const unsigned char* __restrict
 
   if (!kInterp) return;
   for (int p = tid; p < cnt; p += blockDim.x) {
-    const size_t o = ((size_t)b * N + (kKnn ? sid[p] : start + p)) * 3;
+    const size_t o = ((size_t)b * N + start + p) * 3;
     interp_idx[o] = bi0[p];
     interp_idx[o + 1] = bi1[p];
     interp_idx[o + 2] = bi2[p];
@@ -517,71 +468,6 @@ fps_cluster_kernel(const float* __restrict__ pts, const unsigned char* __restric
   if (C > 1) cluster_barrier();
 }
 
-// K1's 3-NN on the cluster route: every point's 3 nearest of the G centres,
-// in centre order with strict <, as the fused loop of the grid route keeps
-// them. One thread a point; the centres pass through shared memory in
-// tiles of kNnTile.
-constexpr int kNnThreads = 256;
-constexpr int kNnTile = 2048;
-
-__global__ void __launch_bounds__(kNnThreads)
-fps_nn3_kernel(const float* __restrict__ pts, const float* __restrict__ centers, int N, int G,
-               int* __restrict__ interp_idx, float* __restrict__ interp_d2) {
-  __shared__ float4 sc[kNnTile];
-  const int b = blockIdx.y, n = blockIdx.x * kNnThreads + threadIdx.x;
-  const float* P = pts + (size_t)b * N * 3;
-  const float* Cb = centers + (size_t)b * G * 3;
-  float x = 0.f, y = 0.f, z = 0.f;
-  if (n < N) {
-    x = P[3 * n];
-    y = P[3 * n + 1];
-    z = P[3 * n + 2];
-  }
-  float bd0 = INFINITY, bd1 = INFINITY, bd2 = INFINITY;
-  int bi0 = 0, bi1 = 0, bi2 = 0;
-  for (int g0 = 0; g0 < G; g0 += kNnTile) {
-    const int m = min(kNnTile, G - g0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < m; i += kNnThreads) {
-      const float* c = Cb + (size_t)(g0 + i) * 3;
-      sc[i] = make_float4(c[0], c[1], c[2], 0.f);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < m; ++i) {
-      const float4 c = sc[i];
-      const float d = sq_dist(x, y, z, c.x, c.y, c.z);
-      if (d < bd2) {
-        const int g = g0 + i;
-        if (d < bd1) {
-          bd2 = bd1;
-          bi2 = bi1;
-          if (d < bd0) {
-            bd1 = bd0;
-            bi1 = bi0;
-            bd0 = d;
-            bi0 = g;
-          } else {
-            bd1 = d;
-            bi1 = g;
-          }
-        } else {
-          bd2 = d;
-          bi2 = g;
-        }
-      }
-    }
-  }
-  if (n >= N) return;
-  const size_t o = ((size_t)b * N + n) * 3;
-  interp_idx[o] = bi0;
-  interp_idx[o + 1] = bi1;
-  interp_idx[o + 2] = bi2;
-  interp_d2[o] = bd0;
-  interp_d2[o + 1] = bd1;
-  interp_d2[o + 2] = bd2;
-}
-
 // Let `kernel` take all the shared memory a block may opt in to.
 template <typename Kernel>
 cudaError_t allow_max_smem(Kernel* kernel) {
@@ -673,20 +559,11 @@ int launch_cluster(const void* pts, const void* valid, const void* first, int B,
   return (int)cudaGetLastError();
 }
 
-int launch_nn3(const void* pts, const void* centers, int B, int N, int G, void* interp_idx,
-               void* interp_d2, void* stream) {
-  fps_nn3_kernel<<<dim3((N + kNnThreads - 1) / kNnThreads, B), kNnThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(centers), N, G,
-      static_cast<int*>(interp_idx), static_cast<float*>(interp_d2));
-  return (int)cudaGetLastError();
-}
-
 // --------------------------------------------------------------- grid route
 template <int kMode>
 int launch(const void* pts, const void* valid, const void* first, int B, int N, int G,
            void* idx_out, void* centers_out, void* interp_idx, void* interp_d2, void* cand_v,
-           void* cand_i, Bins bins, void* stream) {
+           void* cand_i, void* stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -694,12 +571,7 @@ int launch(const void* pts, const void* valid, const void* first, int B, int N, 
   int nblk = (N + kThreads - 1) / kThreads;
   nblk = max(1, min(nblk, sms / B));
   int chunk = (N + nblk - 1) / nblk;
-  if (kMode == kKnnMode) {  // whole bins per block
-    bins.bpb = (bins.nbins + nblk - 1) / nblk;
-    nblk = (bins.nbins + bins.bpb - 1) / bins.bpb;
-    chunk = bins.bpb * bins.chunks;
-  }
-  const int words = kMode == kSelect ? 4 : kMode == kInterpMode ? 10 : 12;
+  const int words = kMode == kSelect ? 4 : 10;
   const size_t smem = (size_t)chunk * words * sizeof(float);
   auto* kernel = fps_interp_kernel<kMode>;
   static const cudaError_t attr = allow_max_smem(kernel);
@@ -720,11 +592,83 @@ int launch(const void* pts, const void* valid, const void* first, int B, int N, 
   float* p_cv = static_cast<float*>(cand_v);
   int* p_ci = static_cast<int*>(cand_i);
   void* args[] = {&p_pts, &p_valid, &p_first, &N, &G, &chunk, &nblk,
-                  &p_idx, &p_ctr, &p_iidx, &p_id2, &p_cv, &p_ci, &bins};
+                  &p_idx, &p_ctr, &p_iidx, &p_id2, &p_cv, &p_ci};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblk, B), dim3(kThreads), args,
                                     smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ K9 bins
+constexpr int kBinThreads = 128;  // 4 warps, all on the block's 32 bins
+constexpr int kBinCentres = 8;    // centres a thread holds in registers
+constexpr int kBinTile = 64;      // members a bin staged at a time: 32 KB
+constexpr int kBinWarps = kBinThreads / 32;
+
+// Bins [32 * blockIdx.x, + 32) (one cell row; l_lanes % 32 == 0) against
+// centres [per_block * blockIdx.y, + per_block) of row blockIdx.z (see the
+// header). Warp w takes centres w * kBinCentres, + kBinCentres, then every
+// kBinWarps * kBinCentres-th on; lane l owns bin 32 * blockIdx.x + l.
+__global__ void __launch_bounds__(kBinThreads)
+knn_bins_kernel(const float* __restrict__ pts, const unsigned char* __restrict__ valid,
+                const float* __restrict__ centers, int N, int G, int l_lanes, int per_block,
+                float* __restrict__ cd, int* __restrict__ ci) {
+  constexpr int T = kBinCentres;
+  __shared__ float4 sm[kBinTile][32];
+  const int b = blockIdx.z, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n8 = N / 8, chunks = n8 / l_lanes, nbins = 8 * l_lanes;
+  const int bin0 = blockIdx.x * 32, r = bin0 / l_lanes, l0 = bin0 % l_lanes;
+  const int c_begin = (int)blockIdx.y * per_block, c_end = min(G, c_begin + per_block);
+  const float* P = pts + (size_t)b * N * 3;
+  const unsigned char* V = valid == nullptr ? nullptr : valid + (size_t)b * N;
+  const float* C = centers + (size_t)b * G * 3;
+  const int base = r * n8 + l0 + lane;  // the id of member 0 of this lane's bin
+
+  for (int j0 = 0; j0 < chunks; j0 += kBinTile) {
+    const int m = min(kBinTile, chunks - j0);
+    if (j0 > 0) __syncthreads();  // every warp is done with the last tile
+    for (int e = threadIdx.x; e < m * 32; e += kBinThreads) {
+      const int n = r * n8 + (j0 + (e >> 5)) * l_lanes + l0 + (e & 31);
+      const bool ok = V == nullptr || V[n];
+      sm[e >> 5][e & 31] = make_float4(ok ? P[3 * n] : INFINITY, P[3 * n + 1], P[3 * n + 2], 0.f);
+    }
+    __syncthreads();
+    for (int c0 = c_begin + warp * T; c0 < c_end; c0 += kBinWarps * T) {
+      float cx[T], cy[T], cz[T], bv[T];
+      int bi[T];
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        const int c = min(c0 + t, c_end - 1);  // a short last group repeats a centre
+        cx[t] = C[3 * c];
+        cy[t] = C[3 * c + 1];
+        cz[t] = C[3 * c + 2];
+        const size_t o = ((size_t)b * G + c) * nbins + bin0 + lane;
+        // The first tile starts at (+inf, member 0), so an all-invalid bin
+        // keeps member 0's id; a later one from this thread's own stores.
+        bv[t] = j0 == 0 ? INFINITY : cd[o];
+        bi[t] = j0 == 0 ? base : ci[o];
+      }
+      for (int j = 0; j < m; ++j) {
+        const float4 p = sm[j][lane];
+        const int id = base + (j0 + j) * l_lanes;
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          const float d = sq_dist(p.x, p.y, p.z, cx[t], cy[t], cz[t]);
+          if (d < bv[t]) {
+            bv[t] = d;
+            bi[t] = id;
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        if (c0 + t >= c_end) break;
+        const size_t o = ((size_t)b * G + c0 + t) * nbins + bin0 + lane;
+        cd[o] = bv[t];
+        ci[o] = bi[t];
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -741,11 +685,11 @@ extern "C" int psam_fps_interp(const void* pts, const void* valid, const void* f
                                void* stream) {
   if (!cluster)
     return launch<kInterpMode>(pts, valid, first, B, N, G, idx_out, centers_out, interp_idx,
-                               interp_d2, cand_v, cand_i, Bins{}, stream);
+                               interp_d2, cand_v, cand_i, stream);
   const int err =
       launch_cluster<true>(pts, valid, first, B, N, G, idx_out, centers_out, stream);
   if (err != 0) return err;
-  return launch_nn3(pts, centers_out, B, N, G, interp_idx, interp_d2, stream);
+  return psam::launch_nn3<false>(pts, centers_out, B, N, G, 0.f, interp_idx, interp_d2, stream);
 }
 
 // K8: the selection alone. Same arguments as psam_fps_interp without the
@@ -756,27 +700,35 @@ extern "C" int psam_fps(const void* pts, const void* valid, const void* first, i
   if (cluster)
     return launch_cluster<false>(pts, valid, first, B, N, G, idx_out, nullptr, stream);
   return launch<kSelect>(pts, valid, first, B, N, G, idx_out, nullptr, nullptr, nullptr,
-                         cand_v, cand_i, Bins{}, stream);
+                         cand_v, cand_i, stream);
 }
 
-// K9: psam_fps_interp's arguments and outputs, with N a multiple of
-// 8 * l_lanes (the caller pads, its padding invalid) and l_lanes a
-// multiple of 32, plus cd [B, G, 8 * l_lanes] f32 and ci [B, G, 8 * l_lanes]
-// int32, each step's bin minima and their point ids.
-extern "C" int psam_fps_interp_knn(const void* pts, const void* valid, const void* first,
-                                   int B, int N, int G, int l_lanes, void* idx_out,
-                                   void* centers_out, void* interp_idx, void* interp_d2,
-                                   void* cd, void* ci, void* cand_v, void* cand_i,
-                                   void* stream) {
-  if (l_lanes <= 0 || N % (8 * l_lanes)) return (int)cudaErrorInvalidValue;
-  Bins bins;
-  bins.n8 = N / 8;
-  bins.l_lanes = l_lanes;
-  bins.chunks = bins.n8 / l_lanes;
-  bins.nbins = 8 * l_lanes;
-  bins.bpb = 0;  // set by launch
-  bins.cd = static_cast<float*>(cd);
-  bins.ci = static_cast<int*>(ci);
-  return launch<kKnnMode>(pts, valid, first, B, N, G, idx_out, centers_out, interp_idx,
-                          interp_d2, cand_v, cand_i, bins, stream);
+// K9's bins (knn_bins_kernel): pts [B, N, 3] f32 with N a multiple of
+// 8 * l_lanes and l_lanes a multiple of 32; valid [B, N] uint8 or NULL;
+// centers [B, G, 3] f32; outputs cd [B, G, 8 * l_lanes] f32 and ci
+// [B, G, 8 * l_lanes] int32, each centre's bin minima and their point ids.
+extern "C" int psam_knn_bins(const void* pts, const void* valid, const void* centers, int B,
+                             int N, int G, int l_lanes, void* cd, void* ci, void* stream) {
+  if (B <= 0 || G <= 0 || l_lanes <= 0 || l_lanes % 32 || N <= 0 || N % (8 * l_lanes))
+    return (int)cudaErrorInvalidValue;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  // Split the centres until the grid holds about 16 blocks an SM (a finer
+  // spread evens out the last wave), in slices of whole warp groups.
+  constexpr int kGroup = kBinWarps * kBinCentres;
+  const int groups = 8 * l_lanes / 32;
+  const long long rows = (long long)B * groups;
+  const int want = (int)((16LL * sms + rows - 1) / rows);
+  const int splits = max(1, min(want, (G + kGroup - 1) / kGroup));
+  const int per_block = ((G + splits - 1) / splits + kGroup - 1) / kGroup * kGroup;
+  const dim3 grid(groups, (G + per_block - 1) / per_block, B);
+  knn_bins_kernel<<<grid, kBinThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pts), static_cast<const unsigned char*>(valid),
+      static_cast<const float*>(centers), N, G, l_lanes, per_block, static_cast<float*>(cd),
+      static_cast<int*>(ci));
+  return (int)cudaGetLastError();
 }

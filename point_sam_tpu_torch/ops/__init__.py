@@ -12,8 +12,8 @@ kernel (autograd Functions):
 - ``mha_flat`` -> K3 (csrc/attention.cu), backward K6 (csrc/attention_bwd.cu),
   for head sizes 64 and 128; ``mha`` (and ``mha_flat`` at other head
   sizes) -> K5 (csrc/attention.cu), backward a plain torch recompute
-- ``fps_with_interp_knn`` -> K9 (csrc/fps_interp.cu, FPS + 3-NN + binned
-  kNN), the tokenizer's ``knn_method="approx"``
+- ``fps_with_interp_knn`` -> K9 (csrc/fps_interp.cu: K1's launch, then the
+  binned kNN over its centres), the tokenizer's ``knn_method="approx"``
 - ``decoder_tail`` -> K4 (``interp_upscale_hyper_fused``, interpolation
   fused in) or a plain 3-NN gather and K11 (``upscale_hyper_fused``), both
   in csrc/upscale.cu, backward a plain torch recompute

@@ -60,8 +60,7 @@ _SIGNATURES = {
     "psam_interp_weights": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "psam_attention_heads": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "psam_upscale_hyper": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "psam_fps_interp_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P],
+    "psam_knn_bins": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

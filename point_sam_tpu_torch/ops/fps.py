@@ -20,11 +20,15 @@ up to ``CLUSTER_POINTS``; "grid", the cooperative kernel over all SMs,
 above that.
 
 ``fps_with_interp_knn`` adds the tokenizer's k nearest points of every
-centre, from bins that the selection loop fills as it goes: kernel K9
-(``csrc/fps_interp.cu``, replacing ``ops/fps_pallas.py::fps_interp_knn_pallas``)
-on a CUDA tensor, ``fps_interp_knn_plain`` on a CPU tensor. The tokenizer
-takes it for ``knn_method="approx"``, gated on the shapes as the JAX
-function is; it returns None where the gate fails.
+centre, from the nearest member of each of 8 * l_lanes bins of the padded
+cloud: kernel K9 (replacing ``ops/fps_pallas.py::fps_interp_knn_pallas``),
+which is K1's launch on the padded cloud and then ``knn_bins_kernel``
+(``csrc/fps_interp.cu``) over its centres, on a CUDA tensor;
+``fps_interp_knn_plain`` on a CPU tensor. The JAX kernel folds each step's
+distance field into the bins as it selects; that fold reads only the
+centre's distances and the validity, so the bins follow from the centres
+alone. The tokenizer takes it for ``knn_method="approx"``, gated on the
+shapes as the JAX function is; it returns None where the gate fails.
 """
 
 from __future__ import annotations
@@ -179,15 +183,13 @@ def fps(points: torch.Tensor, num_samples: int, *,
 
 
 def fps_interp_plain(points: torch.Tensor, num_samples: int, *,
-                     valid: torch.Tensor | None = None, on_field=None):
+                     valid: torch.Tensor | None = None):
     """Plain torch version of kernel K1 (the CPU path and the reference the
     kernel is held against).
 
     Same selection as ``fps_plain``; every step's distance field also updates a
     running best-3 per point (strict <, so ties keep the earlier slot), and
-    one extra pass folds in the last centre's distances. ``on_field(d)``,
-    when given, receives each centre's distance field [B, N] in turn (K9's
-    bin fold).
+    one extra pass folds in the last centre's distances.
 
     Returns:
         (fps_idx [B, G] int32, centers [B, G, 3] f32,
@@ -207,8 +209,6 @@ def fps_interp_plain(points: torch.Tensor, num_samples: int, *,
         c = _center(points, sel)
         ctrs.append(c)
         d = fps_sq_dist(points, c)
-        if on_field is not None:
-            on_field(d)
         min_d = torch.minimum(min_d, d)
         lt0, lt1, lt2 = d < b0, d < b1, d < b2
         gi = torch.full_like(zero, g)
@@ -299,16 +299,50 @@ def _check_knn_args(num_samples: int, k: int, l_lanes: int) -> None:
         raise ValueError(f"k={k} exceeds the bin count {_SUBLANES * l_lanes}")
 
 
+# Centres a step of ``knn_bins_plain`` takes (bounds its [B, tile, n_pad]
+# distance matrices).
+_BIN_CENTRE_TILE = 64
+
+
+def knn_bins_plain(points: torch.Tensor, valid: torch.Tensor, centers: torch.Tensor,
+                   l_lanes: int):
+    """Plain torch version of K9's bins (``knn_bins_kernel``).
+
+    ``points`` [B, n_pad, 3] is the padded cloud (n_pad a multiple of
+    8 * l_lanes), ``valid`` [B, n_pad] bool its validity, ``centers``
+    [B, G, 3]. Point n lies in bin (n // n8, (n % n8) % l_lanes), n8 =
+    n_pad / 8; for every centre and bin, the smallest ``fps_sq_dist`` of
+    the bin's points to the centre (+inf at invalid points) and that
+    point's id, ties to the smallest id (an all-invalid bin: +inf and its
+    first point). The Pallas kernel folds exactly this at the step that
+    selects the centre.
+
+    Returns:
+        (cd [B, G, 8 * l_lanes] f32, ci [B, G, 8 * l_lanes] int32).
+    """
+    B, n_pad, _ = points.shape
+    n8 = n_pad // _SUBLANES
+    chunks = n8 // l_lanes
+    first = (torch.arange(_SUBLANES, device=points.device)[:, None] * n8
+             + torch.arange(l_lanes, device=points.device)).reshape(-1)
+    cds, cis = [], []
+    for s in range(0, centers.shape[1], _BIN_CENTRE_TILE):
+        c = centers[:, s:s + _BIN_CENTRE_TILE].float()
+        d = fma_sq_norm(points[:, None] - c[:, :, None])  # [B, tile, n_pad]
+        dm = d.masked_fill(~valid[:, None], float("inf"))
+        dm = dm.view(B, c.shape[1], _SUBLANES, chunks, l_lanes)
+        mn = dm.min(dim=3).values  # [B, tile, 8, l_lanes]
+        j = (dm == mn[:, :, :, None]).to(torch.uint8).argmax(dim=3)  # first: smallest id
+        cds.append(mn.reshape(B, c.shape[1], -1))
+        cis.append((first + j.reshape(B, c.shape[1], -1) * l_lanes).int())
+    return torch.cat(cds, 1), torch.cat(cis, 1)
+
+
 def fps_interp_knn_plain(points: torch.Tensor, num_samples: int, k: int, *,
                          valid: torch.Tensor | None = None, l_lanes: int = 512):
-    """Plain torch version of kernel K9 (with the top-k that follows it).
-
-    K1's selection and interp on the padded cloud, and at every step the
-    centre's distance field, +inf at padded and invalid points, folded into
-    8 * l_lanes bins: point n of the padded row lies in bin
-    (n // n8, (n % n8) % l_lanes), n8 = n_pad / 8; per bin the smallest
-    distance wins, ties to the smallest point id. Then the k nearest bins
-    of every centre (``bins_top_k``).
+    """Plain torch version of kernel K9 (with the top-k that follows it):
+    ``fps_interp_plain`` on the padded cloud, ``knn_bins_plain`` over its
+    centres, then the k nearest bins of every centre (``bins_top_k``).
 
     Returns:
         (fps_idx [B, G] int32, centers [B, G, 3] f32,
@@ -316,56 +350,53 @@ def fps_interp_knn_plain(points: torch.Tensor, num_samples: int, k: int, *,
          knn_idx [B, G, k] int32, ascending by distance).
     """
     _check_knn_args(num_samples, k, l_lanes)
-    points = points.float()
-    B, N, _ = points.shape
-    pts, v = _knn_cells(points, valid, l_lanes)
-    n8 = pts.shape[1] // _SUBLANES
-    chunks = n8 // l_lanes
-    row = torch.arange(_SUBLANES, device=pts.device)[:, None]
-    lane = torch.arange(l_lanes, device=pts.device)
-    cds, cis = [], []
-
-    def fold(d):
-        dm = d.masked_fill(~v, float("inf")).view(B, _SUBLANES, chunks, l_lanes)
-        mn = dm.min(dim=2).values  # [B, 8, l_lanes]
-        j = (dm == mn[:, :, None]).to(torch.uint8).argmax(dim=2)  # first: smallest id
-        cds.append(mn.reshape(B, -1))
-        cis.append((row * n8 + j * l_lanes + lane).reshape(B, -1).int())
-
-    idx, ctr, iidx, id2 = fps_interp_plain(pts, num_samples, valid=v, on_field=fold)
-    knn_idx = bins_top_k(torch.stack(cds, 1), torch.stack(cis, 1), k, N)
+    N = points.shape[1]
+    pts, v = _knn_cells(points.float(), valid, l_lanes)
+    idx, ctr, iidx, id2 = fps_interp_plain(pts, num_samples, valid=v)
+    knn_idx = bins_top_k(*knn_bins_plain(pts, v, ctr, l_lanes), k, N)
     return idx, ctr, iidx[:, :N], id2[:, :N], knn_idx
+
+
+def knn_bins_cuda(points: torch.Tensor, valid: torch.Tensor, centers: torch.Tensor,
+                  l_lanes: int):
+    """K9's bins on the card (``knn_bins_kernel``); same arguments and
+    outputs as ``knn_bins_plain``, with l_lanes a multiple of 32. Counts
+    nothing: K9's wrapper counts its launches."""
+    if l_lanes % 32:
+        raise ValueError(f"K9 takes l_lanes a multiple of 32, got {l_lanes}")
+    points, centers = points.float().contiguous(), centers.float().contiguous()
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    _cuda.require_cuda(points, valid_u8, centers)
+    B, n_pad, _ = points.shape
+    G = centers.shape[1]
+    nbins = _SUBLANES * l_lanes
+    cd = torch.empty((B, G, nbins), dtype=torch.float32, device=points.device)
+    ci = torch.empty((B, G, nbins), dtype=torch.int32, device=points.device)
+    p = _cuda.ptr
+    code = _cuda.library().psam_knn_bins(p(points), p(valid_u8), p(centers), B, n_pad, G,
+                                         l_lanes, p(cd), p(ci), _cuda.stream())
+    _cuda.check("psam_knn_bins", code)
+    return cd, ci
 
 
 @_cuda.counted
 def fps_interp_knn_cuda(points: torch.Tensor, num_samples: int, k: int, *,
                         valid: torch.Tensor | None = None, l_lanes: int = 512):
-    """Kernel K9 on the card, then ``bins_top_k`` (torch, outside the
-    kernel, as the JAX wrapper runs ``lax.top_k`` outside its kernel); same
-    outputs as ``fps_interp_knn_plain``."""
+    """Kernel K9 on the card: K1's launch on the padded cloud, on the
+    route ``fps_route`` gives for its length (recorded in the launch
+    count), then ``knn_bins_cuda`` and ``bins_top_k`` (torch, outside the
+    kernels, as the JAX wrapper runs ``lax.top_k`` outside its kernel);
+    same outputs as ``fps_interp_knn_plain``."""
     _check_knn_args(num_samples, k, l_lanes)
-    if l_lanes % 32:
-        raise ValueError(f"K9 takes l_lanes a multiple of 32, got {l_lanes}")
     points = points.float().contiguous()
     _cuda.require_cuda(points)
     B, N, _ = points.shape
-    dev = points.device
     pts, v = _knn_cells(points, valid, l_lanes)
-    valid_u8, first = _first_valid(pts, v)
-    G, n_pad, nbins = num_samples, pts.shape[1], _SUBLANES * l_lanes
-    idx = torch.empty((B, G), dtype=torch.int32, device=dev)
-    centers = torch.empty((B, G, 3), dtype=torch.float32, device=dev)
-    interp_idx = torch.empty((B, n_pad, 3), dtype=torch.int32, device=dev)
-    interp_d2 = torch.empty((B, n_pad, 3), dtype=torch.float32, device=dev)
-    cd = torch.empty((B, G, nbins), dtype=torch.float32, device=dev)
-    ci = torch.empty((B, G, nbins), dtype=torch.int32, device=dev)
-    cand_v, cand_i = _candidates(B, dev)
-    p = _cuda.ptr
-    code = _cuda.library().psam_fps_interp_knn(
-        p(pts), p(valid_u8), p(first), B, n_pad, G, l_lanes, p(idx), p(centers),
-        p(interp_idx), p(interp_d2), p(cd), p(ci), p(cand_v), p(cand_i), _cuda.stream())
-    _cuda.check("psam_fps_interp_knn", code)
-    _cuda.count_launch(fps_interp_knn_cuda, B=B, N=N, G=G, k=k, valid=valid is not None)
+    route = fps_route(pts.shape[1])
+    idx, centers, interp_idx, interp_d2 = _launch(pts, num_samples, v, route, interp=True)
+    cd, ci = knn_bins_cuda(pts, v, centers, l_lanes)
+    _cuda.count_launch(fps_interp_knn_cuda, B=B, N=N, G=num_samples, k=k,
+                       valid=valid is not None, route=route)
     knn_idx = bins_top_k(cd, ci, k, N)
     return idx, centers, interp_idx[:, :N], interp_d2[:, :N], knn_idx
 

@@ -3,8 +3,9 @@
 For every query point, its 3 nearest keys and the weights 1 / max(d^2, eps)
 normalised over the three: kernel K10 (``interp_weights_cuda``,
 ``csrc/interp.cu``, replacing ``interp_weights_pallas``), which
-``ops.interp.compute_interp_weights`` launches on CUDA tensors, and its
-plain torch version ``interp_weights_plain``.
+``ops.interp.compute_interp_weights`` launches on CUDA tensors (its scan,
+``csrc/nn3.cuh``, is also K1's 3-NN launch), and its plain torch version
+``interp_weights_plain``.
 
 Distances are the explicit per-coordinate differences of the Pallas
 kernel, not the |q|^2 - 2qk + |k|^2 expansion of ``knn``: with 3

@@ -14,8 +14,8 @@ kernels round where the reference rounds but accumulate in another order
 kernels); K5 as K3. K1 and K8 are exact: indices equal and d^2 bit-equal,
 on both routes (``fps_route``: a cluster a row, or the cooperative grid).
 K10: indices equal, weights within 1e-6 (the same fp32 operations; only
-the division may round differently). K9 is exact (K1's outputs and the
-kNN ids). K11 as K4 (fp32 1e-4), on both routes of ``upscale_route``
+the division may round differently). K9 is exact (K1's outputs, its bins'
+cd / ci and the kNN ids). K11 as K4 (fp32 1e-4), on both routes of ``upscale_route``
 (bf16 "mma" at D 128, 256; "fma" in fp32 and at D 384). The backward
 kernels: K6 1e-5 (fp32) / 2e-2 (bf16) of the largest grad; K7 in fp32 1e-4
 of each grad's largest entry, in bf16 5e-2 in norm (||diff|| / ||plain||):
@@ -455,15 +455,24 @@ def test_fps_routes_match_plain(cuda, kernel, case):
         np.testing.assert_array_equal(n(o_), n(w_))
 
 
+# (B, N, G, ties). The scan (csrc/nn3.cuh) takes a query a thread, 128 a
+# block, and the keys 4 at a time: 70001 and 40000 queries leave a ragged
+# last block; G = 3 and 2049 a ragged last batch, 2049 also a second key
+# tile (2048 a tile); 16384 is K10's most; "grid" puts coordinates on a 1/8
+# grid (exact distance ties), "dup" gives every key a copy at the next index.
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,G,grid", [(2, 3000, 64, False), (1, 5000, 2048, False),
-                                        (2, 700, 3, False), (1, 4000, 512, True)])
-def test_k10_kernel_matches_plain(cuda, B, N, G, grid):
+@pytest.mark.parametrize("B,N,G,ties", [
+    (2, 3000, 64, None), (1, 5000, 2048, None), (2, 700, 3, None), (1, 4000, 512, "grid"),
+    (1, 70001, 3, None), (1, 40000, 300, "grid"), (2, 3000, 2049, None),
+    (1, 2000, 16384, None), (2, 70001, 600, "dup"), (1, 131072, 2049, "grid")])
+def test_k10_kernel_matches_plain(cuda, B, N, G, ties):
     rng = np.random.default_rng(10)
     q = rng.standard_normal((B, N, 3)).astype(np.float32)
     k = rng.standard_normal((B, G, 3)).astype(np.float32)
-    if grid:  # coordinates on a 1/8 grid: exact distance ties
+    if ties == "grid":  # coordinates on a 1/8 grid: exact distance ties
         q, k = np.round(q * 8) / 8, np.round(k * 8) / 8
+    if ties == "dup":
+        k[:, 1::2] = k[:, 0::2]
     q, k = to(q, cuda), to(k, cuda)
     gi, gw = IW.interp_weights_cuda(q, k)
     wi, ww = IW.interp_weights_plain(q, k)
@@ -797,17 +806,26 @@ def k9_inputs(case):
         valid = np.ones((1, 131_072), bool)
         valid[:, 100_000:] = False
         k = 64
+    elif case == "grid":  # padded to 200704 points: K1's grid route, 49 members a bin
+        pts = rng.standard_normal((1, 200_000, 3)).astype(np.float32)
+        valid = rng.random((1, 200_000)) > 0.2
+        k = 64
     return pts, valid, l_lanes, k
 
 
+K9_CASES = ["small", "binned", "valid", "ties", "large", "grid"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["small", "binned", "valid", "ties", "large"])
+@pytest.mark.parametrize("case", K9_CASES)
 def test_k9_kernel_matches_plain(cuda, case):
     pts, valid, l_lanes, k = k9_inputs(case)
     pts = to(pts, cuda)
     valid = None if valid is None else to(valid, cuda)
+    F.fps_interp_knn_cuda.shapes = {}
     got = F.fps_interp_knn_cuda(pts, 128, k, valid=valid, l_lanes=l_lanes)
     torch.cuda.synchronize()
+    assert fps_launch_route(F.fps_interp_knn_cuda) == ("grid" if case == "grid" else "cluster")
     want = F.fps_interp_knn_plain(pts, 128, k, valid=valid, l_lanes=l_lanes)
     for name, g, w in zip(("fps_idx", "centers", "interp_idx", "interp_d2", "knn_idx"), got,
                           want):
@@ -815,6 +833,39 @@ def test_k9_kernel_matches_plain(cuda, case):
     ref = F.fps_interp_cuda(pts, 128, valid=valid)  # selection and interp are K1's
     for g, w in zip(got[:4], ref):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K9_CASES)
+def test_knn_bins_kernel_matches_plain(cuda, case):
+    """K9's bins kernel against ``knn_bins_plain`` on the padded cloud and
+    K1's centres of it, cd and ci bit for bit: l_lanes 128 and 512, invalid
+    points and padding, ties, 32 members a bin at the serve length and 49
+    at 200704 points."""
+    pts, valid, l_lanes, _ = k9_inputs(case)
+    pts_p, v = F._knn_cells(to(pts, cuda), None if valid is None else to(valid, cuda), l_lanes)
+    centers = F._launch(pts_p, 128, v, F.fps_route(pts_p.shape[1]), interp=True)[1]
+    cd, ci = F.knn_bins_cuda(pts_p, v, centers, l_lanes)
+    torch.cuda.synchronize()
+    want_d, want_i = F.knn_bins_plain(pts_p, v, centers, l_lanes)
+    assert torch.equal(cd.view(torch.int32), want_d.view(torch.int32))
+    assert torch.equal(ci, want_i)
+
+
+@pytest.mark.cuda
+def test_knn_bins_kernel_tiles_members_and_centres(cuda):
+    """More members a bin than the kernel stages at a time (64): l_lanes 32
+    at 131072 points gives 512, so later member tiles start from the bins
+    the first wrote; G = 200 leaves a short last group of centres; B = 2."""
+    rng = np.random.default_rng(15)
+    pts = to(rng.standard_normal((2, 131_072, 3)).astype(np.float32), cuda)
+    v = to(rng.random((2, 131_072)) > 0.5, cuda)
+    centers = pts[:, torch.randperm(131_072, device=cuda)[:200]]
+    cd, ci = F.knn_bins_cuda(pts, v, centers, 32)
+    torch.cuda.synchronize()
+    want_d, want_i = F.knn_bins_plain(pts, v, centers, 32)
+    assert torch.equal(cd.view(torch.int32), want_d.view(torch.int32))
+    assert torch.equal(ci, want_i)
 
 
 # (dtype, D, BM, C, N, route), as K4_CASES.
