@@ -85,6 +85,11 @@ last line):
    step again, every grad bit-equal, and (printed) how many grads differ
    with the gathers' backward as autograd's own, plainly and under
    ``torch.use_deterministic_algorithms(True)``;
+13v. as 13, the tiny voronoi model (``PointCloudSAMNN.forward``, its ViT
+   recomputed in the backward) twice: the giant-shaped ViT of 6 at G=32 (K5
+   and its plain backward, K8, K10, K11) and the ViT of 3 at G=128 with
+   refinement iterations (K3, K6, K4, K8, K10); each card step again, and
+   once with the ViT's remat off: every grad bit-equal;
 14. the training path: ViT-L through ``trainer.main`` with the reference
    recipe (configs/large.yaml on synthetic data: B=2, N=10,000, M=2,
    G=1024, K=256, 5 click iterations, bf16 compute, fp32 AdamW), 5 steps,
@@ -111,15 +116,35 @@ last line):
    grid wider than one wave, large logits at the train shape; two calls at the
    train shape bit-equal; the kernel's and the plain version's error against
    an fp32 reference on the same bf16 inputs, printed;
+14v. the voronoi training paths: configs/voronoi_large.yaml (EVA02-L,
+   B=32, 5 click iterations) and configs/voronoi_giant.yaml (EVA-giant, 1B
+   parameters, B=16, 10 click iterations) through ``trainer.main``, 5
+   steps each on the synthetic set (the recipes' ``mixture`` replaced by
+   configs/dataset/synthetic.yaml as a whole ``train_dataset`` value;
+   N=10,000, M=2, G=1024, bf16 compute, fp32 AdamW, per-block ViT remat),
+   checked as 14 (step count, finite losses, no zero grad on the first step
+   outside MAY_BE_ZERO, every parameter moved but those of MAY_BE_ZERO's
+   that took no gradient in any step, launches a step: K3 >= 48,
+   K6 >= 24 / K5 >= 80, K4 once a decode, K8 and K10; none of the kNN
+   path's), with their losses, step time and peak memory printed, then the
+   click sampler alone at each recipe's batch (CUDA events);
+15v. as 5, for every kernel of both voronoi training runs (paths
+   ``voronoi-train`` and ``giant-train``: K3 / K6 at [32, 1024, 1024], K5
+   at [16, 16, 1024, 88], K4 at BM = 64 / 32, K8 at [32 / 16, 10000], K10);
 16. profiles under torch.profiler (device time by stage; K7 by kernel:
-   pass C, pass D, the reduction): one ViT-L train step, timed on one batch before and after that profiler session, then
+   pass C, pass D, the reduction): one ViT-L train step, timed on one batch
+   before and after that profiler session, one train step of each voronoi
+   recipe (the same stages; its model and optimizer built anew), then
    one encode of each serving path (ViT-L, voronoi EVA-giant, hier at
    both groupings, fused-geometry ViT-L) on its model built anew, the
    ViT-L's first and refining click by stage (the decoder tail's kernels
    held to K4's and K11's launches), then 20
    calls of K6 and 20 of SDPA's backward at the train shape. They come last, after
    every timed phase, because a profiler session slows the host's
-   launches for the rest of the process. Every launch that K1-K5, K8-K11
+   launches for the rest of the process. Each session opens with a traced
+   warm-up step whose records are dropped, and its device total leaves out
+   ranges (the profiler's and the optimizer's steps) and may not exceed its
+   wall time. Every launch that K1-K5, K8-K11
    count in a profiled step, encode or click must show in its trace (a
    session that lost one is retaken, at most 3 in all), and each profiled
    encode's geometry must equal its warm-up's bit for bit.
@@ -1078,6 +1103,10 @@ def clicks(pred, xyz):
 # size the packed kernels K3 / K6 take (the "tiny" preset's 4 heads of 32
 # go head-split, to K5).
 TINY_VIT = dict(embed_dim=128, depth=2, num_heads=2, mlp_hidden_dim=256)
+# The tiny voronoi model's ViT of phases 6 and 13v: EVA-giant's block (fused
+# qkv, GELU MLP) at D=176 in 2 heads of 88, so K5 runs.
+TINY_GIANT_VIT = dict(embed_dim=176, depth=2, num_heads=2, mlp_hidden_dim=352, swiglu=False,
+                      qkv_fused=True)
 
 
 def end_to_end_tiny(torch, np, cpu_model, label, counters, expect, device="cuda", **group):
@@ -1283,24 +1312,23 @@ def tail_digest(torch, UP) -> None:
         for k, v in outs.items()), flush=True)
 
 
-def train_step_tiny(torch, np, P, PS, criterion, counters):
-    """Phase 13: one tiny fp32 train step, the CPU's plain versions against
-    the card's kernels (K1-K3, K6, K7 and K11 must each launch), same weights,
-    batch and clicks. Tolerances: loss 1e-4 relative; each grad 1e-4 of its
-    largest entry + 1e-6, the two PointNets' 5e-3 (the card sums in another
-    order, and a max-pool near-tie within that fp32 noise moves a column's
-    grad to another row). Then the card's step runs again on a fresh copy
-    of the model: every grad must be bit-equal. Last, what broke that before
-    is printed (not gated): how many grads differ between two such steps with
-    the gathers' backward as autograd's own (``index_select``'s:
-    ``index_add_``, atomic adds on the card), plainly and under
-    ``torch.use_deterministic_algorithms(True)`` (or the op that raises)."""
-    import importlib
-    import os
+def differ(torch, a: dict, b: dict) -> list:
+    """The names whose tensors in ``a`` and ``b`` are not bit-equal."""
+    return [n for n in a if not torch.equal(a[n], b[n])]
 
-    cfg = P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT), tokenizer=P.TokenizerConfig(32, 16),
-                           prompt_iters=3, enable_mask_refinement_iterations=False)
-    cpu_model = P.PointCloudSAM(cfg, generator=torch.Generator().manual_seed(0))
+
+def tiny_train_check(torch, np, PS, criterion, counters, cpu_model, label, expect, loose):
+    """One tiny fp32 train step of ``cpu_model``, the CPU's plain versions
+    against the card's kernels (each of ``expect`` must launch), same
+    weights, batch (B=2 seeded clouds of N=600 points, M=2 masks each) and
+    clicks. Tolerances: loss 1e-4 relative; each grad 1e-4 of its largest
+    entry + 1e-6, those whose names start with one of ``loose`` 5e-3 (the
+    card sums in another order, and a max's near-tie within that fp32 noise
+    moves a column's grad to another point). Then the card's step again on
+    a fresh copy of the model: every grad must be bit-equal. Returns (step,
+    the card's grads): ``step(dev, remat=None)`` runs the step on a fresh
+    copy, with its ViT's remat set where ``remat`` is given, -> (outputs,
+    loss, grads)."""
     rng = np.random.default_rng(4)
     B, N, M = 2, 600, 2
     coords = rng.standard_normal((B, N, 3)).astype(np.float32)
@@ -1312,12 +1340,14 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
             gt[b, m] = d < np.quantile(d, 0.3)
     batch = dict(coords=coords, features=rng.random((B, N, 3)).astype(np.float32), gt_masks=gt)
 
-    def step(dev):
-        """The step on a fresh copy of the model: (outputs, loss, grads)."""
+    def step(dev, remat=None):
         model = copy.deepcopy(cpu_model).to(dev)
+        if remat is not None:
+            model.pc_encoder.transformer.remat = remat
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        with torch.no_grad():
-            outs = model(tb["coords"], tb["features"], tb["gt_masks"])
+        with torch.no_grad():  # the clicks, drawn as train_step draws them
+            outs = model(tb["coords"], tb["features"], tb["gt_masks"],
+                         generator=torch.Generator().manual_seed(0))
         opt = PS.make_optimizer(model.parameters(), lambda step: 0.0, weight_decay=0.0,
                                 max_grad_value=float("inf"))
         metrics = PS.train_step(model, opt, tb, torch.Generator().manual_seed(0),
@@ -1326,45 +1356,62 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
                  if p.grad is not None}
         return outs, float(metrics["loss"]), grads
 
-    def differ(a, b):
-        return [n for n in a if not torch.equal(a[n], b[n])]
-
     results = []
     for dev in ("cpu", "cuda"):
         reset(counters)
         results.append(step(dev))
-    torch.cuda.synchronize()
-    missing = [k for k in ("K1", "K2", "K3", "K6", "K7", "K11") if counters[k].launches == 0]
-    check(not missing, f"tiny train step: kernels {missing} did not launch on the card")
+    missing = [k for k in expect if counters[k].launches == 0]
+    check(not missing, f"{label}: kernels {missing} did not launch on the card")
     (co, cl, cg), (go, gl, gg) = results
     for c_, g_ in zip(co, go):
         check(torch.equal(c_["prompt_coords"], g_["prompt_coords"].cpu()),
-              "tiny train step: the clicks differ")
-    check(abs(gl - cl) <= 1e-4 * abs(cl), f"tiny train step: loss {gl} vs {cl}")
-    check(set(cg) == set(gg), "tiny train step: grads of different parameters")
+              f"{label}: the clicks differ")
+    check(abs(gl - cl) <= 1e-4 * abs(cl), f"{label}: loss {gl} vs {cl}")
+    check(set(cg) == set(gg), f"{label}: grads of different parameters")
     worst = 0.0
     for n in cg:
-        rel = 5e-3 if ".patch_encoder." in n else 1e-4
+        rel = 5e-3 if n.startswith(loose) else 1e-4
         err = (gg[n].cpu() - cg[n]).abs().max().item()
         scale = cg[n].abs().max().item()
-        check(err <= rel * scale + 1e-6, f"tiny train step: grad {n} err {err:.3g} of {scale:.3g}")
+        check(err <= rel * scale + 1e-6, f"{label}: grad {n} err {err:.3g} of {scale:.3g}")
         worst = max(worst, err / (rel * scale + 1e-6))
-    print(f"train step tiny fp32: card kernels vs CPU plain, loss {gl:.6f} vs {cl:.6f}, "
+    print(f"{label} fp32: card kernels {list(expect)} vs CPU plain, loss {gl:.6f} vs {cl:.6f}, "
           f"{len(cg)} grads, worst error {worst:.3g} of its tolerance", flush=True)
-
-    again = differ(gg, step("cuda")[2])
-    check(not again, f"tiny train step: two runs on the card differ in {len(again)} grads, the "
+    again = differ(torch, gg, step("cuda")[2])
+    check(not again, f"{label}: two runs on the card differ in {len(again)} grads, the "
           f"first {again[0] if again else ''}")
+    return step, gg
+
+
+def train_step_tiny(torch, np, P, PS, criterion, counters):
+    """Phase 13: the tiny kNN model's train step (``tiny_train_check``: the
+    ViT of 3, so K3 and K6 run; G=32, so the forward's tail is K11; K1,
+    K2 and K7 for the patch and mask PointNets, whose grads are the loose
+    ones). Last, what broke the repeat before is printed (not gated): how
+    many grads differ between two such steps with the gathers' backward as
+    autograd's own (``index_select``'s: ``index_add_``, atomic adds on the
+    card), plainly and under ``torch.use_deterministic_algorithms(True)``
+    (or the op that raises)."""
+    import importlib
+    import os
+
+    cfg = P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT), tokenizer=P.TokenizerConfig(32, 16),
+                           prompt_iters=3, enable_mask_refinement_iterations=False)
+    cpu_model = P.PointCloudSAM(cfg, generator=torch.Generator().manual_seed(0))
+    step, gg = tiny_train_check(torch, np, PS, criterion, counters, cpu_model,
+                                "train step tiny", ("K1", "K2", "K3", "K6", "K7", "K11"),
+                                loose=("pc_encoder.patch_embed.patch_encoder.",
+                                       "mask_encoder.patch_encoder."))
     group = importlib.import_module("point_sam_tpu_torch.ops.group")
     port = group._SelectRows.apply
     group._SelectRows.apply = lambda flat, idx: flat.index_select(0, idx)
     config = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     try:
-        found = [differ(*(step("cuda")[2] for _ in range(2)))]
+        found = [differ(torch, *(step("cuda")[2] for _ in range(2)))]
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
         torch.use_deterministic_algorithms(True)
         try:
-            found.append(differ(*(step("cuda")[2] for _ in range(2))))
+            found.append(differ(torch, *(step("cuda")[2] for _ in range(2))))
         except RuntimeError as e:
             found.append(f"raised: {str(e).splitlines()[0][:200]}")
     finally:
@@ -1381,6 +1428,37 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
           f"torch.use_deterministic_algorithms(True): {strict}", flush=True)
 
 
+def train_step_tiny_voronoi(torch, np, P, PS, criterion, counters):
+    """Phase 13v: the tiny voronoi model's train step (``tiny_train_check``)
+    twice: the giant-shaped ViT of phase 6 (dh 88: K5 forward, its plain
+    backward) at G=32 (the tail: the gather and K11), and the ViT of 3 (dh
+    64: K3, K6) at G=128 (K4), with refinement iterations; K8 and K10 for
+    the geometry. The loose grads are the patch embed's per-point layers
+    (before its scatter max) and the whole mask encoder, as phase 13's mask
+    PointNet: its input is the previous iteration's logits, which differ by
+    the card's summation order, and its scatter max picks among near-ties
+    within that noise. Then the card's step with the ViT's remat off: every
+    grad bit-equal to the step with it on (the blocks' forward run again in
+    the backward gives the same bits)."""
+    runs = (("train step tiny voronoi, dh 88", P.ViTConfig(**TINY_GIANT_VIT), 32, False,
+             ("K5", "K8", "K10", "K11")),
+            ("train step tiny voronoi, dh 64", P.ViTConfig(**TINY_VIT), 128, True,
+             ("K3", "K4", "K6", "K8", "K10")))
+    for label, vit, G, refine, expect in runs:
+        cfg = P.VoronoiConfig(vit=vit, num_patches=G, prompt_iters=3,
+                              enable_mask_refinement_iterations=refine)
+        check(cfg.vit_remat, f"{label}: VoronoiConfig's vit_remat is not on by default")
+        cpu_model = P.PointCloudSAMNN(cfg, generator=torch.Generator().manual_seed(0))
+        step, gg = tiny_train_check(torch, np, PS, criterion, counters, cpu_model, label, expect,
+                                    loose=("pc_encoder.patch_embed.in_proj.",
+                                           "pc_encoder.patch_embed.blocks1_", "mask_encoder."))
+        off = differ(torch, gg, step("cuda", remat=False)[2])
+        check(not off, f"{label}: remat on and off differ in {len(off)} grads, the first "
+              f"{off[0] if off else ''}")
+        print(f"{label}: {len(gg)} grads bit-equal over two runs on the card, and with the "
+              f"ViT's remat off", flush=True)
+
+
 # Parameters whose gradient may be zero on a step for reasons of the data:
 # the multimask hypernetworks the min-loss rule did not pick, and the
 # negative-click embedding when no negative click was sampled.
@@ -1394,27 +1472,29 @@ K6_STAGES = (("K6 attention bwd, query pass", ("attn_bwd_query",)),
              ("K6 attention bwd, key pass", ("attn_bwd_key",)))
 # K7 by kernel: pass C on the bf16 mma route, pass D apart, the slices'
 # reduction, and the one-launch kernel of the other shapes.
+# csrc/fps_interp.cu: on the grid route fps_interp_kernel<0> is K8, <1> K1;
+# on the cluster route fps_cluster_kernel<false, R> is K8, and <true, R>
+# with nn3_kernel<false> (csrc/nn3.cuh, the 3-NN launch) K1. K9 runs K1's
+# launch, then knn_bins_kernel; K10 is nn3_kernel<true>.
+FPS_STAGES = (("K1 / K9 FPS + 3-NN",
+               ("fps_interp_kernel<1>", "fps_cluster_kernel<true", "nn3_kernel<false")),
+              ("K8 FPS", ("fps_interp_kernel<0>", "fps_cluster_kernel<false")))
+K10_STAGE = ("K10 3-NN weights", ("nn3_kernel<true",))
+SCATTER_STAGE = ("torch scatter / gather (scatter max, gathers)", ("scatter",))
+# The train steps of all three recipes (kNN ViT-L, voronoi ViT-L and
+# EVA-giant) share these stages.
 TRAIN_STAGES = (("K7 pass C (mma)", ("patch_encoder_bwd_c_mma",)),
                 ("K7 pass D (mma)", ("patch_encoder_bwd_d_mma",)),
                 ("K7 reduce_slices", ("reduce_slices",)),
                 ("K7 one launch", ("patch_encoder_bwd_kernel",)),
                 ("K2 patch encoder", ("patch_encoder",)), *K6_STAGES,
-                ("K3 attention", ("mha_kernel",)), ("K4 / K11 decode tail", ("interp_upscale",)),
-                ("K1 / K9 FPS + 3-NN", ("fps_interp", "fps_cluster", "nn3_kernel<false")),
-                MATMULS)
-# csrc/fps_interp.cu: on the grid route fps_interp_kernel<0> is K8, <1> K1;
-# on the cluster route fps_cluster_kernel<false, R> is K8, and <true, R>
-# with nn3_kernel<false> (csrc/nn3.cuh, the 3-NN launch) K1. K9 runs K1's
-# launch, then knn_bins_kernel; K10 is nn3_kernel<true>.
-ENCODE_STAGES = (("K1 / K9 FPS + 3-NN",
-                  ("fps_interp_kernel<1>", "fps_cluster_kernel<true", "nn3_kernel<false")),
-                 ("K8 FPS", ("fps_interp_kernel<0>", "fps_cluster_kernel<false")),
-                 ("K9 kNN bins", ("knn_bins_kernel",)),
-                 ("K10 3-NN weights", ("nn3_kernel<true",)),
+                ("K3 / K5 attention", ("mha_kernel",)),
+                ("K4 / K11 decode tail", ("interp_upscale",)), *FPS_STAGES, K10_STAGE, SCATTER_STAGE, MATMULS)
+ENCODE_STAGES = (*FPS_STAGES, ("K9 kNN bins", ("knn_bins_kernel",)), K10_STAGE,
                  ("K2 patch encoder", ("patch_encoder",)),
                  ("K3 / K5 attention", ("mha_kernel",)),
                  ("torch top-k / sort (exact kNN, K9's bins)", ("topk", "TopK", "sort", "Sort")),
-                 ("torch scatter / gather (scatter max, gathers)", ("scatter",)), MATMULS)
+                 SCATTER_STAGE, MATMULS)
 # A click: the mask encoder's K2 (refining clicks), the decoder's
 # attention (cuBLAS matmuls and elementwise kernels), the tail (K4, or the
 # gather and K11), and the logits' copy to the host.
@@ -1426,7 +1506,7 @@ CLICK_STAGES = (("K4 / K11 decode tail", ("interp_upscale",)),
 STAGE_WRAPPERS = {"K1 / K9 FPS + 3-NN": ("K1", "K9"), "K8 FPS": ("K8",),
                   "K9 kNN bins": ("K9",), "K10 3-NN weights": ("K10",),
                   "K2 patch encoder": ("K2",), "K3 / K5 attention": ("K3", "K5"),
-                  "K3 attention": ("K3",), "K4 / K11 decode tail": ("K4", "K11")}
+                  "K4 / K11 decode tail": ("K4", "K11")}
 
 
 def profile(torch, label, fn, stages, counters=None, tries=3):
@@ -1440,27 +1520,42 @@ def profile(torch, label, fn, stages, counters=None, tries=3):
         before = {k: c.launches for k, c in (counters or {}).items()}
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        # A warm-up step first (traced, its records dropped): without it the
+        # first kernels of a session went missing after earlier sessions.
+        traced = []
+        with torch.profiler.profile(
+                activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                on_trace_ready=lambda p: traced.extend(p.key_averages())) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
         by_stage = {name: 0.0 for name, _ in stages}
         by_stage["other kernels"] = 0.0
         events = dict.fromkeys(by_stage, 0)
         others = []
         total = 0.0
-        for ev in prof.key_averages():
+        for ev in traced:
             dev_us = getattr(ev, "self_device_time_total", 0) or 0
             if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or dev_us <= 0:
+                continue
+            # Ranges on the device's timeline (the profiler's step, the
+            # optimizer's step) span kernels counted on their own.
+            if getattr(ev, "is_user_annotation", False):
                 continue
             total += dev_us / 1e3
             stage = next((n for n, keys in stages if any(k in ev.key for k in keys)),
                          "other kernels")
             by_stage[stage] += dev_us / 1e3
             events[stage] += ev.count
-            if stage == "other kernels":
-                others.append((dev_us / 1e3, ev.count, ev.key[:60]))
+            if stage == "other kernels":  # the name, without its namespaces
+                others.append((dev_us / 1e3, ev.count,
+                               re.sub(r"void |at::native::|at::|\(anonymous namespace\)::", "",
+                                      ev.key)[:140]))
         lost = []
         for name in by_stage:
             wrappers = STAGE_WRAPPERS.get(name, ()) if counters else ()
@@ -1472,8 +1567,9 @@ def profile(torch, label, fn, stages, counters=None, tries=3):
         print(f"{label} profile, session {attempt} of {tries}: the trace lost launches "
               f"({'; '.join(lost)})", flush=True)
     check(not lost, f"{label} profile: the trace lost launches in {tries} sessions")
+    check(total <= 1.01 * wall, f"{label} profile: {total:.3f} ms of kernels in {wall:.3f} ms")
     split = ", ".join(f"{k} {v:.3f}" for k, v in by_stage.items())
-    top = "; ".join(f"{ms:.3f} ms x{n} {name}" for ms, n, name in sorted(others, reverse=True)[:6])
+    top = "; ".join(f"{ms:.3f} ms x{n} {name}" for ms, n, name in sorted(others, reverse=True)[:8])
     print(f"{label} profile (ms of device time): {split}; total {total:.3f} ms over "
           f"{wall:.3f} ms wall under the profiler (device busy {100 * total / wall:.1f}%); "
           f"largest other kernels: {top}", flush=True)
@@ -1529,18 +1625,27 @@ def profile_step(torch, result, cfg, seed, counters):
           f"{step_ms():.3f} ms after it (median of 4)", flush=True)
 
 
-def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
-    """Phase 14: the training path, the ViT-L recipe through trainer.main on
-    synthetic data. Returns each kernel's launches by shape over the run,
-    and the step to profile."""
+def train_run(torch, trainer, build_model, load_config, counters, config, overrides, minimum,
+              absent, label, steps=5):
+    """A training path: ``trainer.main`` on ``config`` with ``overrides``
+    for ``steps`` steps, the launches read around it, by shape. Checked:
+    the step count, finite losses, no zero grad on the first step but
+    ``MAY_BE_ZERO``'s, every parameter moved from its seeded initial value
+    but those of ``MAY_BE_ZERO``'s that took no gradient in any step,
+    each kernel of ``minimum`` launched at least that often a step and none
+    of ``absent``. Printed: the losses, the median step of steps 2 on,
+    the peak device memory (and what earlier phases held when the run
+    began) and the launches a step. Returns (launch shapes, the trainer's
+    result, the config)."""
     run_dir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(run_dir, ignore_errors=True)
-    overrides = ["train_dataset.dataset.source=synthetic", "val_freq=0", f"max_steps={steps}",
-                 "train_dataset.dataset.num_scenes=16", f"project_dir={run_dir}", "log_freq=1"]
+    overrides = [*overrides, "val_freq=0", f"max_steps={steps}", f"project_dir={run_dir}",
+                 "log_freq=1"]
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset(counters)
-    result = trainer.main(["--config", "large", *overrides])
+    result = trainer.main(["--config", config, *overrides])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     shapes = {name: dict(fn.shapes) for name, fn in counters.items() if fn.shapes}
@@ -1548,28 +1653,156 @@ def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
     shutil.rmtree(run_dir, ignore_errors=True)
 
     hist = result["history"]
-    check(result["step"] == steps and len(hist) == steps, f"trained {result['step']} steps")
-    check(all(math.isfinite(h["loss"]) for h in hist), f"non-finite loss: {hist}")
+    check(result["step"] == steps and len(hist) == steps,
+          f"{label}: trained {result['step']} steps")
+    check(all(math.isfinite(h["loss"]) for h in hist), f"{label}: non-finite loss: {hist}")
     bad = [n for n in result["first_step_zero_grads"] if not n.startswith(MAY_BE_ZERO)]
-    check(not bad, f"zero gradient on the first step: {bad}")
-    model = result["model"]
-    cfg = load_config("large", overrides)
-    seed = cfg.get("seed", 42)
+    check(not bad, f"{label}: zero gradient on the first step: {bad}")
+    cfg = load_config(config, overrides)
     init = build_model(cfg.model, device="cuda",
-                       generator=torch.Generator("cuda").manual_seed(seed)).state_dict()
-    frozen = [n for n, p in model.named_parameters() if torch.equal(p.detach(), init[n])]
-    check(not frozen, f"parameters did not move: {frozen[:5]}")
+                       generator=torch.Generator("cuda").manual_seed(cfg.get("seed", 42))
+                       ).state_dict()
+    # A parameter that kept its initial value must be one of MAY_BE_ZERO's
+    # that took no gradient on any step: its AdamW first moment is all 0
+    # (a multimask hypernetwork that the min-loss rule picked for no mask).
+    state = result["optimizer"].opt.state
+    frozen, idle = [], []
+    for n, p in result["model"].named_parameters():
+        if torch.equal(p.detach(), init[n]):
+            m = state.get(p, {}).get("exp_avg")
+            untouched = m is None or not bool(m.ne(0).any())
+            (idle if n.startswith(MAY_BE_ZERO) and untouched else frozen).append(n)
+    del init
+    check(not frozen, f"{label}: parameters did not move: {frozen[:5]}")
     per_step = {k: v / steps for k, v in launches.items()}
-    minimum = {"K1": 1, "K2": 5, "K3": 24, "K4": 5, "K6": 24, "K7": 5}
     for name, lo in minimum.items():
-        check(per_step[name] >= lo, f"training: {name} launched {per_step[name]} < {lo} per step")
+        check(per_step[name] >= lo, f"{label}: {name} launched {per_step[name]} < {lo} per step")
+    ran = [name for name in absent if launches[name]]
+    check(not ran, f"{label}: kernels {ran} launched off their path")
     step_ms = statistics.median(h["ms"] for h in hist[1:])
-    print(f"train ViT-L (configs/large.yaml, synthetic): B=2, N=10000, M=2, G=1024, K=256, "
-          f"5 click iterations, bf16 compute: {steps} steps, losses "
-          f"{[round(h['loss'], 4) for h in hist]}, step {step_ms:.3f} ms (median of steps "
-          f"2-{steps}; first {hist[0]['ms']:.1f} ms), peak memory {peak / 2**30:.3f} GiB, "
-          f"launches per step {per_step}", flush=True)
-    return shapes, lambda: profile_step(torch, result, cfg, seed, counters)
+    print(f"train {label}: {steps} steps, losses {[round(h['loss'], 4) for h in hist]}, step "
+          f"{step_ms:.3f} ms (median of steps 2-{steps}; first {hist[0]['ms']:.1f} ms), peak "
+          f"memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the run), "
+          f"launches per step {per_step}; took no gradient in any step: {idle or 'none'}",
+          flush=True)
+    return shapes, result, cfg
+
+
+def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
+    """Phase 14: the training path, the ViT-L recipe through trainer.main on
+    synthetic data (``train_run``). Returns each kernel's launches by shape
+    over the run, and the step to profile."""
+    overrides = ["train_dataset.dataset.source=synthetic", "train_dataset.dataset.num_scenes=16"]
+    shapes, result, cfg = train_run(
+        torch, trainer, build_model, load_config, counters, "large", overrides,
+        {"K1": 1, "K2": 5, "K3": 24, "K4": 5, "K6": 24, "K7": 5}, ("K5", "K8", "K9", "K10"),
+        "ViT-L (configs/large.yaml, synthetic): B=2, N=10000, M=2, G=1024, K=256, 5 click "
+        "iterations, bf16 compute", steps)
+    return shapes, lambda: profile_step(torch, result, cfg, cfg.get("seed", 42), counters)
+
+
+def voronoi_overrides(load_config, config, steps) -> list:
+    """The voronoi recipe ``config`` on the synthetic set: its mixture (a
+    ``dataset_dict`` of hub datasets) replaced by configs/dataset/
+    synthetic.yaml as a whole ``train_dataset`` value (JSON, which the
+    overrides read as YAML), with one scene for each example of ``steps``
+    batches; the recipe's B, N, M, G, click iterations, rate and schedule
+    stay as they are."""
+    recipe = load_config(config)
+    ds = load_config("dataset/synthetic", context={"num_samples": recipe.num_samples})
+    ds["dataset"]["num_scenes"] = recipe.train_dataloader["batch_size"] * steps
+    return [f"train_dataset={json.dumps(ds)}"]
+
+
+# Phase 14v: the voronoi recipes, (config, label, launches a step at
+# least, kernels that must not launch). The ViT's blocks run forward twice
+# a step (remat), so K3 / K5 launch twice a block; K4 once a decode.
+VORONOI_TRAIN = (
+    ("voronoi_large", "voronoi-train",
+     "voronoi ViT-L (configs/voronoi_large.yaml, synthetic): B=32, N=10000, M=2, G=1024, 5 click "
+     "iterations, bf16 compute, remat", {"K3": 48, "K4": 5, "K6": 24, "K8": 1, "K10": 1},
+     ("K1", "K2", "K5", "K7", "K9", "K11")),
+    ("voronoi_giant", "giant-train",
+     "voronoi EVA-giant (configs/voronoi_giant.yaml, synthetic): B=16, N=10000, M=2, G=1024, 10 "
+     "click iterations, bf16 compute, remat", {"K4": 10, "K5": 80, "K8": 1, "K10": 1},
+     ("K1", "K2", "K3", "K6", "K7", "K9", "K11")),
+)
+
+
+def time_sampler(torch, cfg, label) -> None:
+    """The click sampler (``sample_prompts``, plain torch) alone at the
+    recipe ``cfg``'s batch (B clouds of N points, M masks): CUDA events,
+    median of 5, for a first click (M regions) and a refining click (3M:
+    false negatives, false positives, the mask), and the calls a step makes
+    (every click iteration but the refinement-only ones). Its work does not
+    depend on the data: [B, N, 2048] fp32 tiles of every pair."""
+    from point_sam_tpu_torch.ops.sampler import sample_prompts
+
+    B, N = cfg.train_dataloader["batch_size"], cfg.num_samples
+    M = next(t["num_samples"] for t in cfg.train_dataset["transforms"]
+             if t["name"] == "random_sample_mask")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    coords = torch.randn((B, N, 3), device="cuda", generator=g)
+    gt = torch.rand((B, M, N), device="cuda", generator=g) < 0.3
+    logits = torch.randn((B * M, N), device="cuda", generator=g)
+    first = time_ms(torch, lambda: sample_prompts(coords, gt))
+    refine = time_ms(torch, lambda: sample_prompts(coords, gt, logits))
+    iters = cfg.model["prompt_iters"]
+    # With refinement iterations, the last and one drawn iteration add no click.
+    calls = iters - min(2, iters - 1) * cfg.model.get("enable_mask_refinement_iterations", True)
+    print(f"click sampler {label} (plain torch) at B={B}, N={N}, M={M}: first click "
+          f"{first:.3f} ms, refining click {refine:.3f} ms; {calls} calls a step "
+          f"({first + (calls - 1) * refine:.1f} ms)", flush=True)
+
+
+def train_voronoi(torch, trainer, build_model, load_config, counters, steps=5) -> dict:
+    """Phase 14v: both voronoi recipes through trainer.main (``train_run``)
+    at their batch, each model and optimizer freed after its run, then the
+    click sampler alone at its batch (``time_sampler``). Returns {path:
+    each kernel's launches by shape}."""
+    import gc
+
+    shapes = {}
+    for config, path, label, minimum, absent in VORONOI_TRAIN:
+        shapes[path], result, cfg = train_run(
+            torch, trainer, build_model, load_config, counters, config,
+            voronoi_overrides(load_config, config, steps), minimum, absent, label, steps)
+        del result
+        gc.collect()
+        torch.cuda.empty_cache()
+        time_sampler(torch, cfg, path)
+    return shapes
+
+
+def profile_voronoi_steps(torch, build_model, load_config, counters):
+    """Phase 16: one train step of each voronoi recipe under torch.profiler
+    (``profile``, the ViT-L step's stages), on its model and optimizer built
+    anew and one batch of its synthetic set, after a warm-up step."""
+    import gc
+
+    from point_sam_tpu_torch.datasets.build import BatchIterator, build_dataset
+    from point_sam_tpu_torch.parallel.train_step import make_optimizer, train_step
+    from point_sam_tpu_torch.train.trainer import to_device
+
+    for config, path, *_ in VORONOI_TRAIN:
+        cfg = load_config(config, voronoi_overrides(load_config, config, 1))
+        seed = cfg.get("seed", 42)
+        model = build_model(cfg.model, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(seed))
+        tx = make_optimizer(model.parameters(), lambda step: cfg.lr)
+        ds = build_dataset(cfg.train_dataset, seed=seed, context={"num_samples": cfg.num_samples})
+        batch = to_device(next(iter(BatchIterator(ds, cfg.train_dataloader["batch_size"],
+                                                  seed=seed))), "cuda")
+        gen = torch.Generator().manual_seed(0)
+
+        def step():
+            return float(train_step(model, tx, batch, gen)["loss"])
+
+        step()  # warm
+        profile(torch, f"{path} train step", step, TRAIN_STAGES, counters)
+        del model, tx, batch
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1641,8 +1874,7 @@ def main() -> int:
     attention_edges(torch, A)
     patch_encoder_edges(torch, PE)
 
-    giant_vit = P.ViTConfig(176, 2, 2, 352, swiglu=False, qkv_fused=True)
-    tiny_nn = P.PointCloudSAMNN(P.VoronoiConfig(vit=giant_vit, num_patches=32),
+    tiny_nn = P.PointCloudSAMNN(P.VoronoiConfig(vit=P.ViTConfig(**TINY_GIANT_VIT), num_patches=32),
                                 generator=torch.Generator().manual_seed(0)).eval()
     end_to_end_tiny(torch, np, tiny_nn, "e2e tiny voronoi", counters, ("K5", "K8", "K10", "K11"))
     voronoi = serve(torch, np, Predictor(giant()), counters, "voronoi EVA-giant",
@@ -1697,6 +1929,7 @@ def main() -> int:
     rows += check_kernels(torch, np, mods, fused, "fusedgeom")
 
     train_step_tiny(torch, np, P, PS, criterion, counters)
+    train_step_tiny_voronoi(torch, np, P, PS, criterion, counters)
     train, train_profile = train_vit_l(torch, trainer, build_model, load_config, counters)
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, train, "train")
@@ -1704,8 +1937,14 @@ def main() -> int:
     pe_train_repeats(torch, PE)
     patch_encoder_bwd_edges(torch, PE)
     attention_bwd_edges(torch, A)
+    for path, shapes in train_voronoi(torch, trainer, build_model, load_config,
+                                      counters).items():
+        rows += check_kernels(torch, np, mods, shapes, path)
 
     train_profile()
+    del train_profile  # the ViT-L model and optimizer
+    torch.cuda.empty_cache()
+    profile_voronoi_steps(torch, build_model, load_config, counters)
     profile_encode(torch, np, vit_l(), "flagship ViT-L", counters, with_clicks=True)
     profile_encode(torch, np, giant(), "voronoi EVA-giant", counters)
     profile_encode(torch, np, hier(), "hier EVA02-L", counters)

@@ -137,10 +137,11 @@ class PointCloudEncoder(nn.Module):
     def __init__(self, vit_cfg: ViTConfig, tokenizer: TokenizerConfig | None = None, *,
                  in_channels: int = 3, embed_dim: int = 256,
                  patch_embed_channels: int = 512, act: str = "erf",
-                 patch_embed: nn.Module | None = None,
+                 patch_embed: nn.Module | None = None, vit_remat: bool = False,
                  dtype=torch.float32, device=None, generator=None):
         """``patch_embed``: the variant's patch embed module; without one,
-        the kNN ``PatchEmbed`` of ``tokenizer``."""
+        the kNN ``PatchEmbed`` of ``tokenizer``. ``vit_remat``: recompute
+        each ViT block in the backward (JAX's ``vit_remat``)."""
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.dtype = dtype
@@ -148,7 +149,7 @@ class PointCloudEncoder(nn.Module):
                                                      patch_embed_channels, act=act, **kw)
         self.patch_proj = Dense(patch_embed_channels, vit_cfg.embed_dim, **kw)
         self.pos_embed = CoordMLP(128, vit_cfg.embed_dim, **kw)
-        self.transformer = ViT(vit_cfg, **kw)
+        self.transformer = ViT(vit_cfg, remat=vit_remat, **kw)
         self.out_proj = Dense(vit_cfg.embed_dim, embed_dim, **kw)
 
     def forward(self, patch_embeddings, centers):

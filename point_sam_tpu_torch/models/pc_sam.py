@@ -51,8 +51,9 @@ class PointSAMConfig:
 
 
 def for_inference(model):
-    """The JAX package turns off ViT remat here; torch has none, so this is
-    the identity (kept so callers read the same in both packages)."""
+    """The JAX package turns off ViT remat here; the port's remat acts only
+    while a gradient is recorded, so this is the identity (kept so callers
+    read the same in both packages)."""
     return model
 
 

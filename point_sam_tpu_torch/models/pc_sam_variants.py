@@ -22,9 +22,11 @@ tokens onto the G1 centres with the level-1 embeddings concatenated, then
 the G1 tokens onto every point through the decoder tail (kernel K4 at the
 default G1 = 2048, the gather and kernel K11 where K4's gate fails).
 
-Only the inference API is ported (``make_geometry``, ``encode``,
-``decode``, ``predict_masks``); the training forwards are later slices
-(ROADMAP.md queue 1).
+``PointCloudSAMNN`` trains (``forward``: the flagship's click loop with
+the fixed sampler, its ViT blocks recomputed in the backward by default,
+as JAX's ``vit_remat``). ``PointCloudSAMHier`` has the inference API only
+(``make_geometry``, ``encode``, ``decode``, ``predict_masks``); its
+training forward is a later slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..ops import decoder_tail, interpolate_features_repeated, repeat_interleave
 from .layers import GELU, MLP, Dense, LayerNorm
 from .mask_decoder import MaskDecoder, OutputUpscaling, TwoWayDecoderTrunk
 from .pc_encoder import PatchEmbedHier, PatchEmbedNN, PointCloudEncoder
+from .pc_sam import PointCloudSAM
 from .prompt_encoder import (
     MaskEncoderHier,
     MaskEncoderNN,
@@ -64,6 +67,9 @@ class VoronoiConfig:
     decoder_mlp_dim: int = 2048
     prompt_iters: int = 5
     enable_mask_refinement_iterations: bool = True
+    # Recompute each ViT block in the backward (JAX's default); no effect
+    # without a gradient, and the parameters are the same either way.
+    vit_remat: bool = True
 
     @property
     def vit_cfg(self) -> ViTConfig:
@@ -82,7 +88,7 @@ class PointCloudSAMNN(nn.Module):
         patch_embed = PatchEmbedNN(in_channels, cfg.hidden_dim, cfg.patch_embed_channels, **kw)
         self.pc_encoder = PointCloudEncoder(
             cfg.vit_cfg, embed_dim=cfg.embed_dim, patch_embed_channels=cfg.patch_embed_channels,
-            patch_embed=patch_embed, **kw)
+            patch_embed=patch_embed, vit_remat=cfg.vit_remat, **kw)
         self.point_encoder = PointEncoder(cfg.embed_dim, **kw)
         self.mask_encoder = MaskEncoderNN(cfg.embed_dim, **kw)
         self.mask_decoder = MaskDecoder(
@@ -135,10 +141,10 @@ class PointCloudSAMNN(nn.Module):
                            prompt_labels, prompt_masks, prompt_valid=prompt_valid,
                            multimask_output=multimask_output)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training the voronoi variant is not ported yet (ROADMAP.md queue 1, "
-            "voronoi training)")
+    # Training / evaluation forward with simulated clicks (JAX
+    # ``PointCloudSAMNN.__call__``): the flagship's, over this model's
+    # geometry, encode, prompt cache and decode.
+    forward = PointCloudSAM.forward
 
 
 # ------------------------------------------------------------------ hier

@@ -12,6 +12,11 @@ rotary embedding, no mask, no cls token; pc_encoder.py:138-142):
 Attention runs through ``ops.mha_flat``: kernel K3 at EVA02's head size 64,
 kernel K5 at EVA-giant's 88. The blocks are one ``nn.ModuleList`` named
 ``blocks``, so state-dict keys are ``blocks.{i}....`` as in timm.
+
+With ``remat`` (JAX's ``nn.remat`` on every block) each block runs under
+``torch.utils.checkpoint`` while a gradient is being recorded: the
+backward keeps only the block inputs and runs each block's forward again.
+Without a gradient nothing changes.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import mha_flat
 from .layers import Dense, LayerNorm
@@ -136,12 +142,14 @@ class EvaBlock(nn.Module):
 
 
 class ViT(nn.Module):
-    """Block stack + final norm."""
+    """Block stack + final norm; ``remat``: recompute each block in the
+    backward (see the module docstring)."""
 
-    def __init__(self, cfg: ViTConfig, *, dtype=torch.float32, device=None,
-                 generator=None):
+    def __init__(self, cfg: ViTConfig, *, remat: bool = False, dtype=torch.float32,
+                 device=None, generator=None):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.dtype = dtype
         self.blocks = nn.ModuleList(
             EvaBlock(cfg, dtype=dtype, device=device, generator=generator)
@@ -151,6 +159,7 @@ class ViT(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.norm(x)

@@ -5,6 +5,12 @@ point_sam_tpu/train/trainer.py, one device):
         train_dataset.dataset.source=synthetic val_freq=0 max_steps=N
     python -m point_sam_tpu_torch.train.trainer --config tiny --device cpu
 
+The kNN model (``variant: knn``) and the voronoi model (``variant:
+voronoi``: ``--config voronoi_large`` or ``voronoi_giant``) train. The
+voronoi recipes read the ``mixture`` of hub datasets; a whole
+``train_dataset`` value in JSON (which the overrides read as YAML) puts
+the synthetic set in its place (README.md has the command).
+
 config -> model -> data -> the train loop of ``parallel.train_step``
 (simulated-click forward, criterion, backward, clip-by-value, AdamW,
 warmup-multistep schedule), keep-1 checkpoints with resume, and IoU-per-click
@@ -13,7 +19,7 @@ and raises without a card rather than falling back to the CPU. TF32 stays
 off for matmuls (set when the package is imported). Model parameters are
 fp32; the compute dtype is bf16 on a CUDA device and fp32 elsewhere.
 
-Not ported yet (ROADMAP.md): pretrained initialisation
+Not ported yet (ROADMAP.md): hier training, pretrained initialisation
 (``pretrained_ckpt_path``), wandb logging and the visualisation dump,
 multi-process / FSDP / TP training.
 """
@@ -70,10 +76,9 @@ def main(argv=None) -> dict:
     seed = cfg.get("seed", 42)
     if cfg.get("pretrained_ckpt_path"):
         raise NotImplementedError("pretrained initialisation is not ported yet (ROADMAP.md)")
-    if cfg.model.get("variant", "knn") != "knn":
+    if cfg.model.get("variant", "knn") == "hier":
         raise NotImplementedError(
-            f"training variant {cfg.model['variant']!r} is not ported yet (ROADMAP.md "
-            "queue 1: voronoi training, then hier training)")
+            "training the hier variant is not ported yet (ROADMAP.md queue 1, hier training)")
 
     model = build_model(cfg.model, device=device,
                         generator=torch.Generator(device).manual_seed(seed))

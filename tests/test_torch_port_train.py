@@ -10,7 +10,9 @@
   the refinement draw agrees) and prompt_iters=3 with refinement
   iterations off (evaluation clicks: mask prompts, and so K2's backward, in
   two iterations);
-- ``trainer.main`` for 2 epochs with a resume, and ``validate``.
+- ``trainer.main`` for 2 epochs with a resume, and ``validate``: the tiny
+  config, and configs/voronoi_large.yaml with the tiny ViT on the synthetic
+  set.
 
 Tolerances: the loss within 1e-5 relative; each gradient leaf within
 1e-4 * max|g| + 1e-7 (fp32, XLA fuses the forward differently: encoder
@@ -21,6 +23,8 @@ near-tie within that distance moves a column's gradient to another row
 (3.6e-3 measured on this batch; given identical inputs the two agree to
 1e-6, see test_torch_port_grads.py). Optimizer and schedule 1e-6 relative.
 """
+
+import json
 
 import numpy as np
 import optax
@@ -197,17 +201,19 @@ def test_load_config_matches_jax():
     assert cfg.train_dataset.transforms[3]["num_samples"] == 10000
     m = build_model(load_config("tiny").model, generator=torch.Generator().manual_seed(0))
     assert m.cfg.prompt_iters == 3 and m.dtype == torch.float32
-    # The voronoi and hier variants build (here with the tiny ViT); voronoi
-    # training is not ported and says so.
+    # The voronoi and hier variants build (here with the tiny ViT); hier
+    # training is not ported and says so (voronoi training:
+    # test_trainer_trains_the_voronoi_recipe).
     voronoi = dict(load_config("voronoi_large").model, vit="tiny")
     m = build_model(voronoi, generator=torch.Generator().manual_seed(0))
     assert type(m).__name__ == "PointCloudSAMNN" and m.cfg.num_patches == 1024
+    assert m.cfg.vit_remat and m.pc_encoder.transformer.remat
     m = build_model({"variant": "hier", "vit": "tiny"}, generator=torch.Generator().manual_seed(0))
     assert type(m).__name__ == "PointCloudSAMHier" and m.cfg.tokenizer.num_patches == (2048, 512)
     from point_sam_tpu_torch.train import trainer
 
-    with pytest.raises(NotImplementedError, match="voronoi training"):
-        trainer.main(["--config", "voronoi_large", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="hier training"):
+        trainer.main(["--config", "tiny", "--device", "cpu", "model.variant=hier"])
 
 
 def test_build_transforms_match_jax():
@@ -327,6 +333,41 @@ def test_trainer_resume_and_validate(tmp_path, capsys):
     val = r2["val"]
     assert set(val) == {"iou(0)", "iou(1)", "iou(2)", "best_multimask_iou"}
     assert all(0.0 <= x <= 1.0 for x in val.values())
+
+
+def synthetic_set(num_scenes):
+    """A whole ``train_dataset`` / ``val_dataset`` override: the synthetic
+    set of configs/dataset/synthetic.yaml with small scenes, in JSON (which
+    the overrides read as YAML)."""
+    ds = load_config("dataset/synthetic", context={"num_samples": 256})
+    ds["dataset"].update(num_scenes=num_scenes, points_per_scene=512)
+    return json.dumps(ds)
+
+
+def test_trainer_trains_the_voronoi_recipe(tmp_path, capsys):
+    """configs/voronoi_large.yaml through trainer.main on the CPU: the tiny
+    ViT, G=16, batch 2, the synthetic set in the mixture's place (train and
+    validation); one epoch, then a resume for a second with validation."""
+    base = ["--config", "voronoi_large", "--device", "cpu", f"project_dir={tmp_path / 'run'}",
+            "num_samples=256", f"train_dataset={synthetic_set(4)}",
+            f"val_dataset={synthetic_set(2)}", "model.vit=tiny",
+            "model.tokenizer.num_patches=16", "train_dataloader.batch_size=2", "save_freq=1",
+            "scheduler.warmup_iters=2", "log_freq=1"]
+    r1 = trainer.main(base + ["max_epochs=1", "val_freq=0"])
+    model = r1["model"]
+    assert type(model).__name__ == "PointCloudSAMNN" and model.cfg.prompt_iters == 5
+    assert model.pc_encoder.transformer.remat
+    assert r1["step"] == 2 and all(np.isfinite(h["loss"]) for h in r1["history"])
+    p1 = {k: v.clone() for k, v in model.state_dict().items()}
+    r2 = trainer.main(base + ["max_epochs=2", "val_freq=1"])
+    assert "resumed from epoch 1" in capsys.readouterr().out
+    assert r2["step"] == 4 and r2["optimizer"].count == 4
+    assert all(np.isfinite(h["loss"]) for h in r2["history"])
+    moved = [k for k, v in r2["model"].state_dict().items()
+             if v.is_floating_point() and not torch.equal(v, p1[k])]
+    assert moved
+    assert set(r2["val"]) == {f"iou({i})" for i in range(5)} | {"best_multimask_iou"}
+    assert all(0.0 <= x <= 1.0 for x in r2["val"].values())
 
 
 def test_trainer_needs_a_device_or_cuda():
