@@ -90,6 +90,12 @@ last line):
    and its plain backward, K8, K10, K11) and the ViT of 3 at G=128 with
    refinement iterations (K3, K6, K4, K8, K10); each card step again, and
    once with the ViT's remat off: every grad bit-equal;
+13h. as 13, the tiny hier model (``PointCloudSAMHier.forward``, the ViT of
+   3 over G=(128, 32), K=(16, 8), refinement iterations; K2, K3, K4, K6,
+   K7 with dx at level 2, K8, K10), both sides with the fixed sampler in
+   the random one's place so their clicks agree; the card's step again and
+   with remat off, then twice with the random sampler under one seed:
+   clicks and every grad bit-equal;
 14. the training path: ViT-L through ``trainer.main`` with the reference
    recipe (configs/large.yaml on synthetic data: B=2, N=10,000, M=2,
    G=1024, K=256, 5 click iterations, bf16 compute, fp32 AdamW), 5 steps,
@@ -131,18 +137,30 @@ last line):
 15v. as 5, for every kernel of both voronoi training runs (paths
    ``voronoi-train`` and ``giant-train``: K3 / K6 at [32, 1024, 1024], K5
    at [16, 16, 1024, 88], K4 at BM = 64 / 32, K8 at [32 / 16, 10000], K10);
+14h. the hier training path: configs/large.yaml's recipe (B=2, N=10,000,
+   M=2) with configs/model/hier.yaml as its whole ``model`` value (EVA02-L,
+   G=(2048, 512), K=(32, 32), 8 click iterations with the random sampler,
+   per-block remat) through ``trainer.main``, 5 steps on the synthetic set,
+   checked as 14, launches a step: K3 >= 48, K6 >= 24, K2 and K7 >= 16, K4
+   >= 8, K8 >= 1, K10 >= 2, none of K1, K5, K9, K11; K7 with dx exactly
+   at the two level-2 shapes (C_in = 131);
+15h. as 5, for every kernel of the hier training run (path
+   ``hier-train``): K2 with its argmax outputs and K7 (with dx at level 2,
+   its passes C / D timed) at the four PointNet shapes, K3 / K6 at [2, 512,
+   1024], K4 at BM = 4, D = 128, K8, K10 at both levels;
 16. profiles under torch.profiler (device time by stage; K7 by kernel:
    pass C, pass D, the reduction): one ViT-L train step, timed on one batch
    before and after that profiler session, one train step of each voronoi
-   recipe (the same stages; its model and optimizer built anew), then
+   recipe and of the hier recipe (the same stages; its model and optimizer
+   built anew), then
    one encode of each serving path (ViT-L, voronoi EVA-giant, hier at
    both groupings, fused-geometry ViT-L) on its model built anew, the
    ViT-L's first and refining click by stage (the decoder tail's kernels
-   held to K4's and K11's launches), then 20
-   calls of K6 and 20 of SDPA's backward at the train shape. They come last, after
-   every timed phase, because a profiler session slows the host's
-   launches for the rest of the process. Each session opens with a traced
-   warm-up step whose records are dropped, and its device total leaves out
+   held to K4's and K11's launches), then 20 calls of K6 and 20 of SDPA's
+   backward at the train shape. They come last, after every timed phase,
+   because a profiler session slows the host's launches for the rest of
+   the process. Each session opens with the profiled call once as a traced
+   warm-up whose records are dropped, and its device total leaves out
    ranges (the profiler's and the optimizer's steps) and may not exceed its
    wall time. Every launch that K1-K5, K8-K11
    count in a profiled step, encode or click must show in its trace (a
@@ -630,11 +648,13 @@ def pe_stages(torch, PE, x, params, G, K, cdt, act):
 
 def pe_ties(x):
     """Duplicate rows of x [B, G, K, C_in] in place, across each level of
-    K2's reduction: 1 = 0 (one fragment), 40 = 3 (another row group), 70 =
-    10 (another 64-row chunk), 200 = 130 (another chunk and m-tile). The
-    copies 1, 40, 70, 200 are never a first maximum; the sources are
-    returned for the count of columns whose maximum is a duplicated row."""
-    pairs = ((0, 1), (3, 40), (10, 70), (130, 200))
+    K2's reduction that K rows reach: 1 = 0 (one fragment), 21 = 5 and 40 =
+    3 (other row groups), 70 = 10 (another 64-row chunk), 200 = 130
+    (another chunk and m-tile). The copies are never a first maximum; the
+    sources are returned for the count of columns whose maximum is a
+    duplicated row."""
+    pairs = [(src, dst) for src, dst in ((0, 1), (5, 21), (3, 40), (10, 70), (130, 200))
+             if dst < x.shape[2]]
     for src, dst in pairs:
         x[:, :, dst] = x[:, :, src]
     return [src for src, _ in pairs], [dst for _, dst in pairs]
@@ -1459,6 +1479,54 @@ def train_step_tiny_voronoi(torch, np, P, PS, criterion, counters):
               f"ViT's remat off", flush=True)
 
 
+def train_step_tiny_hier(torch, np, P, PS, criterion, counters):
+    """Phase 13h: the tiny hier model's train step (``tiny_train_check``):
+    the ViT of 3 (K3, K6) over G=(128, 32), K=(16, 8) with hier.yaml's radii
+    (K8, K10 twice, K2 and K7 at both levels, K7 with dx at level 2, whose
+    input holds the level-1 embeddings; G1=128, so the tail is K4), 3
+    click iterations with refinement. The CPU and the card cannot draw the
+    same noise, so both click by the fixed sampler in the random one's
+    place (``models/pc_sam.py``'s ``sample_prompts_random``) and their
+    clicks agree; the card's step again, and with the ViT's remat off:
+    every grad bit-equal. Then the card's step twice with the random
+    sampler under one seed: the same clicks and every grad bit-equal. The
+    loose grads are both PointNets' of the patch embed and the mask
+    encoder (phase 13's reason; level 2 reads level 1's output)."""
+    import importlib
+
+    from point_sam_tpu_torch.ops.sampler import sample_prompts
+
+    label = "train step tiny hier"
+    cfg = P.HierConfig(vit=P.ViTConfig(**TINY_VIT),
+                       tokenizer=P.HierTokenizerConfig((128, 32), (16, 8), (0.05, 0.1)),
+                       prompt_iters=3)
+    check(cfg.vit_remat and cfg.enable_mask_refinement_iterations,
+          f"{label}: HierConfig's remat or refinement is not on by default")
+    cpu_model = P.PointCloudSAMHier(cfg, generator=torch.Generator().manual_seed(0))
+    pc = importlib.import_module("point_sam_tpu_torch.models.pc_sam")
+    random = pc.sample_prompts_random
+    pc.sample_prompts_random = lambda gen, coords, gt, pred=None, *, point_valid=None: (
+        sample_prompts(coords, gt, pred, point_valid=point_valid))
+    try:
+        step, gg = tiny_train_check(torch, np, PS, criterion, counters, cpu_model, label,
+                                    ("K2", "K3", "K4", "K6", "K7", "K8", "K10"),
+                                    loose=("pc_encoder.patch_embed.", "mask_encoder."))
+        off = differ(torch, gg, step("cuda", remat=False)[2])
+    finally:
+        pc.sample_prompts_random = random
+    check(not off, f"{label}: remat on and off differ in {len(off)} grads, the first "
+          f"{off[0] if off else ''}")
+    (o1, _, g1), (o2, _, g2) = step("cuda"), step("cuda")
+    check(all(torch.equal(a["prompt_coords"], b["prompt_coords"]) for a, b in zip(o1, o2)),
+          f"{label}: the random sampler's clicks differ under one seed")
+    again = differ(torch, g1, g2)
+    check(not again, f"{label}: with the random sampler two runs differ in {len(again)} grads, "
+          f"the first {again[0] if again else ''}")
+    print(f"{label}: {len(gg)} grads bit-equal over two runs on the card and with the ViT's "
+          f"remat off (fixed sampler); with the random sampler the clicks and {len(g1)} grads "
+          f"bit-equal over two runs under one seed", flush=True)
+
+
 # Parameters whose gradient may be zero on a step for reasons of the data:
 # the multimask hypernetworks the min-loss rule did not pick, and the
 # negative-click embedding when no negative click was sampled.
@@ -1517,17 +1585,19 @@ def profile(torch, label, fn, stages, counters=None, tries=3):
     stage in the trace: a trace that lost one is reported and taken again,
     up to ``tries`` sessions in all, and then the check fails."""
     for attempt in range(1, tries + 1):
-        before = {k: c.launches for k, c in (counters or {}).items()}
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        # A warm-up step first (traced, its records dropped): without it the
-        # first kernels of a session went missing after earlier sessions.
+        # ``fn`` once as a warm-up step first (traced, its records dropped):
+        # after earlier sessions a session's first kernel (a train step's
+        # first FPS launch) went missing behind a warm-up of one small
+        # kernel, and came back behind a warm-up of ``fn`` itself.
         traced = []
         with torch.profiler.profile(
                 activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
                 on_trace_ready=lambda p: traced.extend(p.key_averages())) as prof:
-            torch.ones(1, device="cuda").add_(1)
+            fn()
             torch.cuda.synchronize()
+            before = {k: c.launches for k, c in (counters or {}).items()}
             prof.step()
             t0 = time.perf_counter()
             fn()
@@ -1774,18 +1844,52 @@ def train_voronoi(torch, trainer, build_model, load_config, counters, steps=5) -
     return shapes
 
 
-def profile_voronoi_steps(torch, build_model, load_config, counters):
-    """Phase 16: one train step of each voronoi recipe under torch.profiler
-    (``profile``, the ViT-L step's stages), on its model and optimizer built
-    anew and one batch of its synthetic set, after a warm-up step."""
+def hier_overrides(load_config) -> list:
+    """configs/large.yaml's recipe (B=2, N=10,000, M=2, its rate and
+    schedule) on the synthetic set, with configs/model/hier.yaml as its
+    whole ``model`` value (JSON, which the overrides read as YAML)."""
+    return ["train_dataset.dataset.source=synthetic", "train_dataset.dataset.num_scenes=16",
+            f"model={json.dumps(load_config('model/hier'))}"]
+
+
+def train_hier(torch, trainer, build_model, load_config, counters, steps=5) -> dict:
+    """Phase 14h: the hier recipe through trainer.main (``train_run``): 8
+    click iterations a step, 7 with a mask prompt, so K2 and K7 launch
+    2 + 2 x 7 times, K4 once a decode, K3 twice a block (remat). K7 must
+    launch with dx exactly at level 2 (C_in = 131: the patch embed's ->
+    512 and the mask encoder's -> 256). Returns each kernel's launches by
+    shape."""
+    import gc
+
+    shapes, result, _ = train_run(
+        torch, trainer, build_model, load_config, counters, "large", hier_overrides(load_config),
+        {"K2": 16, "K3": 48, "K4": 8, "K6": 24, "K7": 16, "K8": 1, "K10": 2},
+        ("K1", "K5", "K9", "K11"),
+        "hier EVA02-L (configs/large.yaml, model configs/model/hier.yaml, synthetic): B=2, "
+        "N=10000, M=2, G=(2048, 512), K=(32, 32), 8 click iterations, bf16 compute, remat", steps)
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    k7 = [dict(k) for k in shapes["K7"]]
+    with_dx = {k["cout"] for k in k7 if k["cin"] == 131 and k["need_dx"]}
+    check(with_dx == {256, 512} and all(k["need_dx"] == (k["cin"] == 131) for k in k7),
+          f"hier-train: K7 launched with dx at {[(k['cin'], k['cout'], k['need_dx']) for k in k7]}")
+    return shapes
+
+
+def profile_train_steps(torch, build_model, load_config, counters, runs):
+    """Phase 16: one train step of each of ``runs`` ((path, config,
+    overrides)) under torch.profiler (``profile``, the ViT-L step's
+    stages), on its model and optimizer built anew and one batch of its
+    synthetic set, after a warm-up step."""
     import gc
 
     from point_sam_tpu_torch.datasets.build import BatchIterator, build_dataset
     from point_sam_tpu_torch.parallel.train_step import make_optimizer, train_step
     from point_sam_tpu_torch.train.trainer import to_device
 
-    for config, path, *_ in VORONOI_TRAIN:
-        cfg = load_config(config, voronoi_overrides(load_config, config, 1))
+    for path, config, overrides in runs:
+        cfg = load_config(config, overrides)
         seed = cfg.get("seed", 42)
         model = build_model(cfg.model, device="cuda",
                             generator=torch.Generator("cuda").manual_seed(seed))
@@ -1930,6 +2034,7 @@ def main() -> int:
 
     train_step_tiny(torch, np, P, PS, criterion, counters)
     train_step_tiny_voronoi(torch, np, P, PS, criterion, counters)
+    train_step_tiny_hier(torch, np, P, PS, criterion, counters)
     train, train_profile = train_vit_l(torch, trainer, build_model, load_config, counters)
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, train, "train")
@@ -1940,11 +2045,16 @@ def main() -> int:
     for path, shapes in train_voronoi(torch, trainer, build_model, load_config,
                                       counters).items():
         rows += check_kernels(torch, np, mods, shapes, path)
+    hier_train = train_hier(torch, trainer, build_model, load_config, counters)
+    rows += check_kernels(torch, np, mods, hier_train, "hier-train")
 
     train_profile()
     del train_profile  # the ViT-L model and optimizer
     torch.cuda.empty_cache()
-    profile_voronoi_steps(torch, build_model, load_config, counters)
+    profile_train_steps(torch, build_model, load_config, counters,
+                        [(path, config, voronoi_overrides(load_config, config, 1))
+                         for config, path, *_ in VORONOI_TRAIN]
+                        + [("hier-train", "large", hier_overrides(load_config))])
     profile_encode(torch, np, vit_l(), "flagship ViT-L", counters, with_clicks=True)
     profile_encode(torch, np, giant(), "voronoi EVA-giant", counters)
     profile_encode(torch, np, hier(), "hier EVA02-L", counters)

@@ -8,7 +8,10 @@ logits forward as the next iteration's mask prompt.
 The click loop keeps the JAX loop's shape: one prompt slot per iteration;
 with mask-refinement iterations on (training), the last iteration and one
 iteration drawn from ``randint(1, prompt_iters)`` add no click (the drawn
-one skips the sampler), and iteration 0 always clicks.
+one skips the sampler), and iteration 0 always clicks. The flagship and
+voronoi models click by the fixed sampler (farthest from the region's
+border); the hier model by the random one (a uniform point of the error
+region), whose noise is drawn on the coordinates' device.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..ops.sampler import sample_prompts
+from ..ops.sampler import sample_prompts, sample_prompts_random
 from .layers import Dense
 from .mask_decoder import MaskDecoder
 from .pc_encoder import PointCloudEncoder
@@ -169,8 +172,17 @@ class PointCloudSAM(nn.Module):
 
 
 def _click_loop(model, pc_embeddings, pc_pe, coords, geom, gt_masks, *, is_eval,
-                point_valid, generator):
-    """The prompt-iteration loop (JAX ``_click_loop`` with the fixed sampler)."""
+                point_valid, generator, sampler="fixed", decode_extra=None):
+    """The prompt-iteration loop (JAX ``_click_loop``).
+
+    ``sampler``: "fixed" (``sample_prompts``) or "random"
+    (``sample_prompts_random``). The random sampler's noise is drawn on the
+    coordinates' device from a generator that ``generator`` seeds once a
+    call (after the refinement draw); each iteration reseeds it with that
+    seed plus its index, so no iteration's clicks depend on which one
+    skipped the sampler (JAX draws a key every iteration for the same
+    reason). ``decode_extra``: keyword arguments every decode also takes
+    (the hier model's ``embeddings_l1``)."""
     c = model.cfg
     B, M, N = gt_masks.shape
     BM, iters, dev = B * M, c.prompt_iters, coords.device
@@ -185,21 +197,31 @@ def _click_loop(model, pc_embeddings, pc_pe, coords, geom, gt_masks, *, is_eval,
             raise ValueError("refinement iterations need a torch.Generator")
         sampled_refine = int(torch.randint(1, iters, (1,), generator=generator,
                                            device=generator.device))
+    if sampler == "random":
+        if generator is None:
+            raise ValueError("the random click sampler needs a torch.Generator")
+        seed = int(torch.randint(2 ** 62, (1,), generator=generator, device=generator.device))
+        noise = torch.Generator(dev)
 
     prompt_masks = None
     outputs = []
     for i in range(iters):
         statically_refine = refinement and i == iters - 1 and i != 0
         if not statically_refine and (i == 0 or i != sampled_refine):
-            new_pc, new_pl = sample_prompts(coords, gt_masks, prompt_masks,
-                                            point_valid=point_valid)
+            if sampler == "random":
+                new_pc, new_pl = sample_prompts_random(noise.manual_seed(seed + i), coords,
+                                                       gt_masks, prompt_masks,
+                                                       point_valid=point_valid)
+            else:
+                new_pc, new_pl = sample_prompts(coords, gt_masks, prompt_masks,
+                                                point_valid=point_valid)
             buf_coords[:, i] = new_pc[:, 0]
             buf_labels[:, i] = new_pl[:, 0]
             buf_valid[:, i] = True
         masks, iou_preds = model.decode(
-            pc_embeddings, pc_pe, coords, geom, buf_coords[:, :i + 1],
-            buf_labels[:, :i + 1], prompt_masks, prompt_valid=buf_valid[:, :i + 1],
-            multimask_output=(i == 0))
+            pc_embeddings, pc_pe, coords, geom, prompt_coords=buf_coords[:, :i + 1],
+            prompt_labels=buf_labels[:, :i + 1], prompt_masks=prompt_masks,
+            prompt_valid=buf_valid[:, :i + 1], multimask_output=(i == 0), **(decode_extra or {}))
         if i == 0:
             max_iou_pred_ind = iou_preds.argmax(1)
             prompt_masks = torch.take_along_dim(masks, max_iou_pred_ind[:, None, None],

@@ -22,11 +22,12 @@ tokens onto the G1 centres with the level-1 embeddings concatenated, then
 the G1 tokens onto every point through the decoder tail (kernel K4 at the
 default G1 = 2048, the gather and kernel K11 where K4's gate fails).
 
-``PointCloudSAMNN`` trains (``forward``: the flagship's click loop with
-the fixed sampler, its ViT blocks recomputed in the backward by default,
-as JAX's ``vit_remat``). ``PointCloudSAMHier`` has the inference API only
-(``make_geometry``, ``encode``, ``decode``, ``predict_masks``); its
-training forward is a later slice (ROADMAP.md queue 1).
+Both train (``forward``: the flagship's click loop, with the fixed
+sampler for ``PointCloudSAMNN`` and the random one for
+``PointCloudSAMHier``, as JAX's; the ViT blocks recomputed in the backward
+by default, as JAX's ``vit_remat``). In the hier model the level-1
+embeddings feed level 2's PointNet and every decode, so their gradient
+reaches level 1 through kernel K7's dx.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from ..ops import decoder_tail, interpolate_features_repeated, repeat_interleave
 from .layers import GELU, MLP, Dense, LayerNorm
 from .mask_decoder import MaskDecoder, OutputUpscaling, TwoWayDecoderTrunk
 from .pc_encoder import PatchEmbedHier, PatchEmbedNN, PointCloudEncoder
-from .pc_sam import PointCloudSAM
+from .pc_sam import PointCloudSAM, _click_loop
 from .prompt_encoder import (
     MaskEncoderHier,
     MaskEncoderNN,
@@ -150,9 +151,7 @@ class PointCloudSAMNN(nn.Module):
 # ------------------------------------------------------------------ hier
 @dataclasses.dataclass(frozen=True)
 class HierConfig:
-    """Hier model hyperparameters (reference configs/model/hier.yaml). The
-    training fields (``prompt_iters`` and the refinement switch) come with
-    hier training."""
+    """Hier model hyperparameters (reference configs/model/hier.yaml)."""
 
     vit: str | ViTConfig = "eva02_large"
     tokenizer: HierTokenizerConfig = HierTokenizerConfig()
@@ -162,6 +161,9 @@ class HierConfig:
     decoder_depth: int = 2
     decoder_num_heads: int = 8
     decoder_mlp_dim: int = 2048
+    prompt_iters: int = 8
+    enable_mask_refinement_iterations: bool = True
+    vit_remat: bool = True  # as VoronoiConfig.vit_remat
 
     @property
     def vit_cfg(self) -> ViTConfig:
@@ -238,7 +240,7 @@ class PointCloudSAMHier(nn.Module):
         patch_embed = PatchEmbedHier(cfg.tokenizer, in_channels, cfg.patch_embed_channels, **kw)
         self.pc_encoder = PointCloudEncoder(
             cfg.vit_cfg, embed_dim=cfg.embed_dim, patch_embed_channels=cfg.patch_embed_channels,
-            patch_embed=patch_embed, **kw)
+            patch_embed=patch_embed, vit_remat=cfg.vit_remat, **kw)
         self.point_encoder = PointEncoder(cfg.embed_dim, **kw)
         self.mask_encoder = MaskEncoderHier(cfg.embed_dim, radius=cfg.tokenizer.radius, **kw)
         self.mask_decoder = MaskDecoderHier(
@@ -300,7 +302,17 @@ class PointCloudSAMHier(nn.Module):
                            prompt_labels, prompt_masks, prompt_valid=prompt_valid,
                            multimask_output=multimask_output)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training the hier variant is not ported yet (ROADMAP.md queue 1, "
-            "hier training)")
+    def forward(self, coords, features, gt_masks, *, is_eval: bool = False,
+                point_valid=None, generator: torch.Generator | None = None):
+        """Training / evaluation forward with simulated clicks (JAX
+        ``PointCloudSAMHier.__call__``): the geometry, one encode, the
+        prompt cache once, then the click loop with the random sampler and
+        the level-1 embeddings in every decode. Arguments and returns as
+        ``PointCloudSAM.forward``, but ``generator`` is needed always: it
+        also seeds the sampler's noise."""
+        geom = self.make_geometry(coords, point_valid=point_valid)
+        pc_embeddings, pc_pe, x1 = self.encode(coords, features, geom)
+        geom.update(self.prompt_cache(coords, geom))
+        return _click_loop(self, pc_embeddings, pc_pe, coords, geom, gt_masks, is_eval=is_eval,
+                           point_valid=point_valid, generator=generator, sampler="random",
+                           decode_extra=dict(embeddings_l1=x1))

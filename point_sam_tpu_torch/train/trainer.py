@@ -5,11 +5,12 @@ point_sam_tpu/train/trainer.py, one device):
         train_dataset.dataset.source=synthetic val_freq=0 max_steps=N
     python -m point_sam_tpu_torch.train.trainer --config tiny --device cpu
 
-The kNN model (``variant: knn``) and the voronoi model (``variant:
-voronoi``: ``--config voronoi_large`` or ``voronoi_giant``) train. The
-voronoi recipes read the ``mixture`` of hub datasets; a whole
-``train_dataset`` value in JSON (which the overrides read as YAML) puts
-the synthetic set in its place (README.md has the command).
+All three models train: kNN (``variant: knn``), voronoi (``--config
+voronoi_large`` or ``voronoi_giant``) and hier (a recipe such as
+``--config large`` with configs/model/hier.yaml as its whole ``model``
+value). A whole value is given in JSON, which the overrides read as YAML;
+so the synthetic set takes the place of the voronoi recipes' ``mixture``
+of hub datasets (README.md has the commands).
 
 config -> model -> data -> the train loop of ``parallel.train_step``
 (simulated-click forward, criterion, backward, clip-by-value, AdamW,
@@ -19,7 +20,7 @@ and raises without a card rather than falling back to the CPU. TF32 stays
 off for matmuls (set when the package is imported). Model parameters are
 fp32; the compute dtype is bf16 on a CUDA device and fp32 elsewhere.
 
-Not ported yet (ROADMAP.md): hier training, pretrained initialisation
+Not ported yet (ROADMAP.md): pretrained initialisation
 (``pretrained_ckpt_path``), wandb logging and the visualisation dump,
 multi-process / FSDP / TP training.
 """
@@ -76,9 +77,6 @@ def main(argv=None) -> dict:
     seed = cfg.get("seed", 42)
     if cfg.get("pretrained_ckpt_path"):
         raise NotImplementedError("pretrained initialisation is not ported yet (ROADMAP.md)")
-    if cfg.model.get("variant", "knn") == "hier":
-        raise NotImplementedError(
-            "training the hier variant is not ported yet (ROADMAP.md queue 1, hier training)")
 
     model = build_model(cfg.model, device=device,
                         generator=torch.Generator(device).manual_seed(seed))
@@ -167,14 +165,18 @@ def main(argv=None) -> dict:
 def validate(model, val_iter, device) -> dict:
     """IoU per click (``iou(i)``) and the best-of-multimask IoU of the first
     click, averaged over the validation masks (evaluation clicks: every
-    iteration adds one)."""
+    iteration adds one). The random click sampler (hier model) draws from
+    a generator seeded here with a constant, so a validation repeats; the
+    fixed sampler draws nothing."""
     from ..models.loss import compute_iou
 
     model.eval()
+    clicks = torch.Generator().manual_seed(0)
     agg = defaultdict(list)
     for batch_np in val_iter:
         b = to_device(batch_np, device)
-        outputs = model(b["coords"], b["features"], b["gt_masks"], is_eval=True)
+        outputs = model(b["coords"], b["features"], b["gt_masks"], is_eval=True,
+                        generator=clicks)
         gt = b["gt_masks"].reshape(-1, b["gt_masks"].shape[-1])
         for i, out in enumerate(outputs):
             if i == 0:

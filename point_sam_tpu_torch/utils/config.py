@@ -200,9 +200,7 @@ def build_model(model_cfg: dict, *, dtype=None, device=None, generator=None):
         cfg = VoronoiConfig(num_patches=tok.get("num_patches", 1024),
                             hidden_dim=tok.get("hidden_dim", 256), **common)
         return PointCloudSAMNN(cfg, **kw)
-    if variant == "hier":  # training fields stay out until hier training is ported
-        for f in ("prompt_iters", "enable_mask_refinement_iterations"):
-            common.pop(f)
+    if variant == "hier":
         cfg = HierConfig(
             tokenizer=HierTokenizerConfig(
                 num_patches=tuple(tok.get("num_patches", (2048, 512))),

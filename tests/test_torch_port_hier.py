@@ -227,9 +227,29 @@ def test_predict_masks_matches_jax(tiny):
 
 
 def test_forward_raises(tiny):
+    """The training forward clicks by the random sampler, so it raises
+    without a generator (also with ``is_eval``); given one, it returns
+    ``prompt_iters`` (8, the default) dicts with the documented keys and
+    shapes (M=2).
+    Its numbers against JAX: tests/test_torch_port_hier_train.py."""
     _, _, pm = tiny
-    with pytest.raises(NotImplementedError, match="hier training"):
-        pm(None, None, None)
+    coords, feats, valid, _, _ = hier_inputs(np.random.default_rng(6))
+    gt = torch.from_numpy(np.random.default_rng(7).random((1, 2, coords.shape[1])) < 0.3)
+    args = (t(coords), t(feats), gt)
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
+        pm(*args, is_eval=True, point_valid=t(valid))
+    with torch.no_grad():
+        outs = pm(*args, point_valid=t(valid), generator=torch.Generator().manual_seed(0))
+    assert len(outs) == pm.cfg.prompt_iters == 8
+    N = coords.shape[1]
+    for i, out in enumerate(outs):
+        assert set(out) == {"prompt_coords", "prompt_labels", "prompt_valid", "masks",
+                            "iou_preds", "max_iou_pred_ind", "prompt_masks"}
+        c = 3 if i == 0 else 1
+        assert out["masks"].shape == (2, c, N) and out["iou_preds"].shape == (2, c)
+        assert out["prompt_coords"].shape == (2, i + 1, 3)
+        assert out["prompt_masks"].shape == (2, N)
+        assert bool(torch.isfinite(out["masks"]).all())
 
 
 # ------------------------------------------------------------ predictor

@@ -12,7 +12,7 @@
   two iterations);
 - ``trainer.main`` for 2 epochs with a resume, and ``validate``: the tiny
   config, and configs/voronoi_large.yaml with the tiny ViT on the synthetic
-  set.
+  set; one step of the tiny config with ``model.variant=hier``.
 
 Tolerances: the loss within 1e-5 relative; each gradient leaf within
 1e-4 * max|g| + 1e-7 (fp32, XLA fuses the forward differently: encoder
@@ -191,7 +191,7 @@ def test_optimizer_matches_optax():
 
 
 # ------------------------------------------------------------ config
-def test_load_config_matches_jax():
+def test_load_config_matches_jax(tmp_path):
     for name, ov in (("large", ["train_dataset.dataset.source=synthetic", "val_freq=0",
                                 "max_steps=4", "lr=1e-5"]),
                      ("tiny", ["model.prompt_iters=2"]), ("base", [])):
@@ -201,9 +201,9 @@ def test_load_config_matches_jax():
     assert cfg.train_dataset.transforms[3]["num_samples"] == 10000
     m = build_model(load_config("tiny").model, generator=torch.Generator().manual_seed(0))
     assert m.cfg.prompt_iters == 3 and m.dtype == torch.float32
-    # The voronoi and hier variants build (here with the tiny ViT); hier
-    # training is not ported and says so (voronoi training:
-    # test_trainer_trains_the_voronoi_recipe).
+    # The voronoi and hier variants build (here with the tiny ViT), and
+    # the trainer takes both (test_trainer_trains_the_voronoi_recipe, and
+    # tests/test_torch_port_hier_train.py for the hier recipe).
     voronoi = dict(load_config("voronoi_large").model, vit="tiny")
     m = build_model(voronoi, generator=torch.Generator().manual_seed(0))
     assert type(m).__name__ == "PointCloudSAMNN" and m.cfg.num_patches == 1024
@@ -212,8 +212,13 @@ def test_load_config_matches_jax():
     assert type(m).__name__ == "PointCloudSAMHier" and m.cfg.tokenizer.num_patches == (2048, 512)
     from point_sam_tpu_torch.train import trainer
 
-    with pytest.raises(NotImplementedError, match="hier training"):
-        trainer.main(["--config", "tiny", "--device", "cpu", "model.variant=hier"])
+    r = trainer.main(["--config", "tiny", "--device", "cpu", "model.variant=hier",
+                      "model.tokenizer={num_patches: [32, 8], patch_size: [8, 4]}",
+                      f"project_dir={tmp_path / 'run'}", "num_samples=256", "max_steps=1",
+                      "val_freq=0", "train_dataset.dataset.num_scenes=2",
+                      "train_dataset.dataset.points_per_scene=512"])
+    assert type(r["model"]).__name__ == "PointCloudSAMHier" and r["model"].cfg.prompt_iters == 3
+    assert r["step"] == 1 and np.isfinite(r["history"][0]["loss"])
 
 
 def test_build_transforms_match_jax():
