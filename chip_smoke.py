@@ -79,6 +79,26 @@ last line):
    its kNN to a recall >= 0.9 against the exact kNN; its route and time a
    selection step printed, and the bins kernel and the top-k also timed
    alone (the bins with their own bound);
+12e. the interactive evaluator, tiny: ``evaluate_scene`` with the fp32
+   model of 3 on the CPU (plain versions) and on the card, one synthetic
+   scene of 1500 points padded to 2048, 7 instances in chunks of 2 (the
+   last partial), 3 clicks, exact (K1-K4) and with ``fps_candidates=1024``
+   (K8 on the subset, K10): IoUs per instance and click within 1e-5;
+12f. the flagship evaluation: 2 synthetic scenes of 100,000 points written
+   by ``serving/make_assets.py``, the bf16 ViT-L (G=2048, K=256, bucket
+   131072), 5 clicks, 4 masks a batch, in three arms: ``evaluate_directory``
+   (exact: K1), then ``evaluate_scene`` with ``fps_candidates=32768`` (K8 on
+   the subset, K10) and with ``knn_method="approx"`` (K9); per arm the mIoU
+   per click (finite, in [0, 1]; seeded weights), each scene's ms and the
+   click sampler's share of it (CUDA events), peak memory and exact launch
+   counts; then as 5 for every kernel of each arm (paths ``eval``,
+   ``eval-fpscand``, ``eval-fusedgeom``: K2 and K4 at BM=4, K8 on the
+   32768-point subset among them);
+12s. the demo server: ``build_server`` over a bf16 ViT-L Predictor on
+   127.0.0.1 in a thread, over HTTP: GET /pointcloud of a 12f asset, three
+   POST /segment, /next, /save; each seg bit-equal to ``Predictor.click``
+   on the same cloud and clicks, the launches of each request exact, its
+   wall ms printed;
 13. tiny train step in fp32 (the ViT of 3, so K3 and K6 run; G=32, so the
    forward's tail is K11): the CPU with the plain versions against the
    card with the kernels, same weights, batch and clicks; then the card's
@@ -1909,6 +1929,236 @@ def profile_train_steps(torch, build_model, load_config, counters, runs):
         torch.cuda.empty_cache()
 
 
+# Phases 12e, 12f and 12s: evaluation and the demo server.
+EVAL_TINY_ARMS = (
+    ("exact", {}, ("K1", "K2", "K3", "K4"), ("K8", "K9", "K10")),
+    ("fps_candidates=1024", {"fps_candidates": 1024}, ("K2", "K3", "K4", "K8", "K10"),
+     ("K1", "K9")),
+)
+
+
+def eval_tiny(torch, np, cpu_model, counters) -> None:
+    """Phase 12e: ``InteractiveEvaluator.evaluate_scene`` with the tiny fp32
+    model of phase 3 on the CPU (plain versions) and on the card (kernels),
+    same weights, on one synthetic scene of 1500 points (bucket 2048, so
+    padded; G=256, K=16 by the evaluator's rule) whose 7 instances go in
+    chunks of 2 (the last one partial), 3 clicks; two arms: exact, and
+    approximate FPS (K8 on a 1024-point subset, then K10). The IoUs per
+    instance and click must agree to 1e-5."""
+    from point_sam_tpu_torch.datasets.synthetic import generate_scene
+    from point_sam_tpu_torch.evalsuite.eval_interactive import (
+        InteractiveEvaluator,
+        filter_masks,
+        normalize_scene,
+    )
+
+    ex = generate_scene(3, num_points=1500)
+    xyz, rgb = normalize_scene(ex["coords"], ex["features"])
+    gt = ex["gt_masks"][filter_masks(ex["gt_masks"])]
+    check(len(gt) % 2 == 1, f"eval tiny: {len(gt)} instances, no partial chunk")
+    gpu_model = copy.deepcopy(cpu_model)
+    for arm, kw, expect, absent in EVAL_TINY_ARMS:
+        ious = {}
+        for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+            ev = InteractiveEvaluator(model, device=dev, num_clicks=3, point_buckets=(2048,),
+                                      masks_per_batch=2, **kw)
+            reset(counters)
+            ious[dev] = ev.evaluate_scene(xyz, rgb, gt)
+        missing = [k for k in expect if counters[k].launches == 0]
+        check(not missing, f"eval tiny {arm}: kernels {missing} did not launch on the card")
+        extra = [k for k in absent if counters[k].launches]
+        check(not extra, f"eval tiny {arm}: kernels {extra} launched")
+        check(ious["cuda"].shape == (len(gt), 3), f"eval tiny {arm}: {ious['cuda'].shape}")
+        err = float(np.abs(ious["cuda"] - ious["cpu"]).max())
+        check(err <= 1e-5, f"eval tiny {arm}: IoUs differ from the CPU's by {err:.3g} > 1e-5")
+        print(f"eval tiny fp32, {arm}: card kernels {list(expect)} vs CPU plain, {len(gt)} "
+              f"instances x 3 clicks, max |dIoU| {err:.3g}, mIoU per click "
+              f"{np.round(ious['cuda'].mean(0), 4).tolist()}", flush=True)
+
+
+# Phase 12f: the arms of the flagship evaluation, (path, the evaluator's
+# arguments, what it is, kernels that must launch, kernels that must not).
+EVAL_ARMS = (
+    ("eval", {}, "exact FPS and kNN", ("K1",), ("K8", "K9", "K10")),
+    ("eval-fpscand", {"fps_candidates": 32768}, "approximate FPS, 32768 candidates",
+     ("K8", "K10"), ("K1", "K9")),
+    ("eval-fusedgeom", {"knn_method": "approx"}, 'knn_method="approx"', ("K9",),
+     ("K1", "K8", "K10")),
+)
+
+
+def eval_flagship(torch, np, model, counters, workdir) -> dict:
+    """Phase 12f: 2 synthetic scenes of 100,000 points written by
+    ``serving/make_assets.py``, evaluated by the bf16 ViT-L ``model`` (kNN
+    tokenizer, G=2048, K=256 by the evaluator's rule, bucket 131072) with 5
+    clicks and 4 masks a batch: ``evaluate_directory`` (the exact arm), then
+    ``evaluate_scene`` on the same scenes in two more arms (EVAL_ARMS).
+    Per arm: mIoU per click (finite, in [0, 1]), each scene's ms by CUDA
+    events and the share of it in the click sampler (``sample_prompts``,
+    CUDA events around each call), peak memory, and the launches (each
+    scene's encode: K1 / K8 + K10 / K9 once, K3 24 times; K2 once an encode
+    and once a refining click of each chunk; K4 once a click of each
+    chunk). A short warm-up (2 clicks of the first scene) goes first.
+    Returns each arm's launches by shape, keyed by its path."""
+    from point_sam_tpu_torch.evalsuite import eval_interactive as EI
+    from point_sam_tpu_torch.serving import make_assets
+    from point_sam_tpu_torch.utils.ply import load_ply
+
+    make_assets.main(["--out", str(workdir), "--num", "2", "--points", str(N_FLAGSHIP)])
+    scenes = []
+    for path in sorted(workdir.glob("*.ply")):
+        xyz, rgb = load_ply(path)
+        gt = np.load(path.with_suffix(".masks.npy"))
+        scenes.append((path.name, *EI.normalize_scene(xyz, rgb), gt[EI.filter_masks(gt)]))
+    chunks = sum(-(-len(s[3]) // 4) for s in scenes)
+    clicks = 5
+    EI.InteractiveEvaluator(model, device="cuda", num_clicks=2).evaluate_scene(*scenes[0][1:])
+
+    # Each scene's and each sampler call's CUDA events, read after the arm.
+    spans = {"scene": [], "sampler": []}
+    real_scene, real_sampler = EI.InteractiveEvaluator.evaluate_scene, EI.sample_prompts
+
+    def timed(fn, name):
+        def run(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    EI.InteractiveEvaluator.evaluate_scene = timed(real_scene, "scene")
+    EI.sample_prompts = timed(real_sampler, "sampler")
+    shapes_by_path = {}
+    try:
+        for path, kw, what, present, absent in EVAL_ARMS:
+            for spans_of in spans.values():
+                spans_of.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset(counters)
+            if path == "eval":
+                report = EI.evaluate_directory(model, workdir, device="cuda", num_clicks=clicks,
+                                               masks_per_batch=4, **kw)
+                check(report["num_instances"] == sum(len(s[3]) for s in scenes),
+                      f"{path}: {report['num_instances']} instances")
+                miou = [report["mean_iou_per_click"][k + 1] for k in range(clicks)]
+            else:
+                ev = EI.InteractiveEvaluator(model, device="cuda", num_clicks=clicks,
+                                             masks_per_batch=4, **kw)
+                ious = np.concatenate([ev.evaluate_scene(*s[1:]) for s in scenes])
+                check(ious.shape == (sum(len(s[3]) for s in scenes), clicks),
+                      f"{path}: IoUs {ious.shape}")
+                miou = ious.mean(0).tolist()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            shapes_by_path[path] = {name: dict(fn.shapes) for name, fn in counters.items()
+                                    if fn.shapes}
+            check(all(np.isfinite(m) and 0.0 <= m <= 1.0 for m in miou),
+                  f"{path}: mIoU per click {miou}")
+            want = {"K2": len(scenes) + (clicks - 1) * chunks, "K3": 24 * len(scenes),
+                    "K4": clicks * chunks, **{k: len(scenes) for k in present}}
+            for name, n in want.items():
+                check(launches[name] == n, f"{path}: {name} launched {launches[name]}, not {n}")
+            extra = [k for k in absent if launches[k]]
+            check(not extra, f"{path}: kernels {extra} launched")
+            scene_ms = [s.elapsed_time(e) for s, e in spans["scene"]]
+            sampler_ms = sum(s.elapsed_time(e) for s, e in spans["sampler"])
+            check(len(scene_ms) == len(scenes), f"{path}: {len(scene_ms)} scenes timed")
+            print(f"eval {path} ({what}), ViT-L bf16, {len(scenes)} scenes of {N_FLAGSHIP} "
+                  f"points (bucket 131072), {clicks} clicks, 4 masks a batch, "
+                  f"{sum(len(s[3]) for s in scenes)} instances in {chunks} chunks: mIoU per "
+                  f"click {[round(m, 4) for m in miou]}; ms per scene "
+                  f"{[round(m, 3) for m in scene_ms]}; click sampler {sampler_ms:.3f} ms "
+                  f"({len(spans['sampler'])} calls, {sampler_ms / sum(scene_ms):.1%} of the "
+                  f"scenes' time); peak memory {peak / 2**30:.3f} GiB; launches {launches}",
+                  flush=True)
+    finally:
+        EI.InteractiveEvaluator.evaluate_scene, EI.sample_prompts = real_scene, real_sampler
+    return shapes_by_path
+
+
+def serve_http(torch, np, model, counters, workdir) -> None:
+    """Phase 12s: ``build_server`` over the bf16 ViT-L ``model`` on
+    127.0.0.1, port 0, in a thread; over HTTP: GET /pointcloud of the first
+    100,000-point asset of 12f, three POST /segment (positive, negative,
+    positive), /next and /save. Each seg has N entries and equals, bit for
+    bit, the mask of ``Predictor.click`` on the same normalised cloud and
+    clicks; the launches of each request are read around it (the encode:
+    K1 1, K2 1, K3 24; a click: K4 1, and K2 1 on a refining click); each
+    request's wall ms printed. The server is shut down and its thread
+    joined."""
+    import threading
+    import urllib.request
+
+    from point_sam_tpu_torch.serving.server import build_server
+
+    httpd, session = build_server(model, device="cuda", port=0, model_dir=workdir,
+                                  output_dir=workdir / "out")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    name = sorted(workdir.glob("*.ply"))[0].name
+    timings = []
+    try:
+        def request(label, path, payload=None, **want):
+            """One GET (no payload) or POST over HTTP: its JSON, its wall ms
+            and its launches."""
+            data = None if payload is None else json.dumps(payload).encode()
+            req = urllib.request.Request(url + path, data=data,
+                                         headers={"Content-Type": "application/json"})
+            reset(counters)
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body = json.loads(r.read())
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            check(launches == want, f"server {label}: launches {launches}, not {want}")
+            timings.append(f"{label} {ms:.1f} ms")
+            return body
+
+        cloud = request(f"GET /pointcloud/{name}", f"/pointcloud/{name}", K1=1, K2=1, K3=24)
+        xyz = np.asarray(cloud["xyz"], np.float32).reshape(-1, 3)
+        rgb = np.asarray(cloud["rgb"], np.float32).reshape(-1, 3)
+        check(xyz.shape == rgb.shape == (N_FLAGSHIP, 3), f"server: cloud {xyz.shape}")
+        check(float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0, "server: rgb not in [0, 1]")
+        segs, points, labels = [], [], []
+        for i, (idx, label) in enumerate(((10, 1), (700, 0), (500, 1))):
+            points.append(xyz[idx].tolist())
+            labels.append(label)
+            out = request(f"POST /segment {i + 1}", "/segment",
+                          {"prompt_point": points[-1], "prompt_label": label},
+                          K4=1, **({"K2": 1} if i else {}))
+            seg = np.asarray(out["seg"])
+            check(seg.shape == (N_FLAGSHIP,) and seg.dtype == bool, f"server: seg {seg.shape}")
+            segs.append(seg)
+        nxt = request("POST /next", "/next", {})
+        check(nxt == {"status": "cleared", "num_instances": 1}, f"server: /next {nxt}")
+        saved = request("POST /save", "/save", {})
+        check(saved["status"] == "saved", f"server: /save {saved}")
+        mask = np.load(saved["path"], allow_pickle=True).item()["mask"]
+        check(mask.shape == (1, N_FLAGSHIP) and np.array_equal(mask[0], segs[-1]),
+              "server: the saved instance is not the last seg")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "server: the serving thread did not stop")
+
+    # The same cloud and clicks through the session's Predictor directly.
+    pred = session.predictor
+    pred.set_pointcloud(xyz, rgb)
+    prev = None
+    for i, seg in enumerate(segs):
+        want, prev = pred.click(np.asarray(points[:i + 1], np.float32), labels[:i + 1], prev)
+        check(np.array_equal(seg, want), f"server: seg {i + 1} differs from Predictor.click")
+    print(f"server ViT-L bf16 over HTTP, {name} ({N_FLAGSHIP} points): segs equal "
+          f"Predictor.click bit for bit ({[int(s.sum()) for s in segs]} points in each); "
+          f"wall {'; '.join(timings)}", flush=True)
+
+
 def main() -> int:
     import importlib
 
@@ -2031,6 +2281,21 @@ def main() -> int:
         T.knn = exact_knn
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, fused, "fusedgeom")
+
+    # Evaluation and the demo server: the tiny evaluator on the card against
+    # the CPU, the flagship evaluation in three arms, then the HTTP server.
+    eval_tiny(torch, np, tiny, counters)
+    workdir = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        evals = eval_flagship(torch, np, vit_l(), counters, workdir)
+        torch.cuda.empty_cache()
+        for path, shapes in evals.items():
+            rows += check_kernels(torch, np, mods, shapes, path)
+        serve_http(torch, np, vit_l(), counters, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     train_step_tiny(torch, np, P, PS, criterion, counters)
     train_step_tiny_voronoi(torch, np, P, PS, criterion, counters)

@@ -95,11 +95,11 @@ class PointCloudSAM(nn.Module):
         """(G centres, K neighbours per centre) of the model's tokenizer."""
         return self.cfg.tokenizer.num_patches, self.cfg.tokenizer.patch_size
 
-    def make_geometry(self, coords, *, point_valid=None, group_number=None,
+    def make_geometry(self, coords, *, point_valid=None, tokenizer=None, group_number=None,
                       group_size=None) -> dict:
-        """Parameter-free tokenizer geometry; serving may override G and K
-        per scene."""
-        tok = self.cfg.tokenizer
+        """Parameter-free tokenizer geometry. Evaluation may pass a whole
+        ``TokenizerConfig`` per scene, serving may override G and K."""
+        tok = tokenizer or self.cfg.tokenizer
         tok = dataclasses.replace(tok, num_patches=group_number or tok.num_patches,
                                   patch_size=group_size or tok.patch_size)
         return compute_geometry(coords, tok, point_valid=point_valid)

@@ -33,7 +33,8 @@ class TokenizerConfig:
     expected recall ~0.97 at K=256 from one pass) where its shape gate
     holds; elsewhere it raises, as the approximate search it stands for in
     JAX (``lax.approx_min_k``) is not ported (ROADMAP.md, approx-kNN kernel).
-    ``fps_candidates`` (approximate FPS) is not ported; None is exact FPS.
+    ``fps_candidates``: approximate FPS, the centres selected from a strided
+    subset of this many points (``ops.fps(candidates=)``); None is exact FPS.
     """
 
     num_patches: int = 512
@@ -82,9 +83,7 @@ def compute_geometry(
             coords, cfg.num_patches, valid=point_valid,
             candidates=cfg.fps_candidates, with_centers=True)
     else:
-        if cfg.fps_candidates is not None:
-            raise NotImplementedError("approximate FPS is not ported")
-        fps_idx = fps(coords, cfg.num_patches, valid=point_valid)
+        fps_idx = fps(coords, cfg.num_patches, valid=point_valid, candidates=cfg.fps_candidates)
         centers = batch_index_select(coords, fps_idx, axis=1)
     _, knn_idx = knn(centers, coords, cfg.patch_size, key_valid=point_valid,
                      method=cfg.knn_method)

@@ -143,6 +143,15 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point (Predictor, evaluator, server,
+    trainer): ``cuda`` unless another is named; no silent CPU fallback."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" (--device cpu) to run on the CPU')
+    return dev
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor."""
     for t in tensors:

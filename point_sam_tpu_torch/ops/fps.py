@@ -12,6 +12,9 @@ point, its 3 nearest centres with normalised inverse-square-distance
 weights. On a CUDA tensor it launches kernel K1 (``csrc/fps_interp.cu``,
 replacing ``ops/fps_pallas.py::fps_interp_pallas``); on a CPU tensor it
 runs ``fps_interp_plain``, the same computation step by step in torch.
+With ``candidates`` (approximate FPS) the selection runs on a strided
+subset of the cloud (K8 on the card), and ``fps_with_interp`` then takes
+the 3-NN weights from ``compute_interp_weights`` (K10), as JAX does.
 
 K1 and K8 take one of two routes, by the row length alone
 (``fps_route``): "cluster", one thread-block cluster a row with every
@@ -33,9 +36,11 @@ shapes as the JAX function is; it returns None where the gate fails.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _cuda
+from .group import batch_index_select
 
 
 def fma_sq_norm(d: torch.Tensor) -> torch.Tensor:
@@ -166,18 +171,37 @@ def fps_cuda(points: torch.Tensor, num_samples: int, *,
     return idx
 
 
+def candidate_subset(n: int, candidates: int) -> np.ndarray:
+    """The strided subset of approximate FPS, as JAX forms it:
+    floor(arange(candidates) * (n / candidates)) in fp32, the quotient
+    rounded to fp32 first (a weakly typed Python float in JAX). int64 [c]."""
+    step = np.float32(n / candidates)
+    return np.floor(np.arange(candidates, dtype=np.float32) * step).astype(np.int64)
+
+
 def fps(points: torch.Tensor, num_samples: int, *,
-        valid: torch.Tensor | None = None) -> torch.Tensor:
+        valid: torch.Tensor | None = None, candidates: int | None = None) -> torch.Tensor:
     """Farthest point sampling: K8 on the card, ``fps_plain`` on the CPU.
 
     Args:
         points: [B, N, 3] coordinates (computed in fp32).
         num_samples: G.
         valid: optional [B, N] bool mask of real points.
+        candidates: approximate FPS (JAX ``ops/fps.py:109-117``): where
+            N > candidates, select from the strided subset
+            ``candidate_subset(N, candidates)`` (and its part of ``valid``)
+            and map the indices back to N.
 
     Returns:
         [B, G] int32 indices into N.
     """
+    N = points.shape[-2]
+    if candidates is not None and N > candidates:
+        if num_samples > candidates:
+            raise ValueError(f"num_samples={num_samples} exceeds candidates={candidates}")
+        sub = torch.from_numpy(candidate_subset(N, candidates)).to(points.device)
+        idx = fps(points[:, sub], num_samples, valid=None if valid is None else valid[:, sub])
+        return sub[idx.long()].int()
     run = fps_cuda if points.is_cuda else fps_plain
     return run(points, num_samples, valid=valid)
 
@@ -245,7 +269,10 @@ def fps_with_interp(
     with_centers: bool = False,
     eps: float = 1e-8,
 ):
-    """FPS + 3-NN interpolation geometry from one pass.
+    """FPS + 3-NN interpolation geometry from one pass (K1). With
+    ``candidates`` (approximate FPS; the selection no longer sees every
+    point) in two, as JAX's: ``fps(candidates=)`` (K8 on the strided subset),
+    the centres gathered, then ``compute_interp_weights`` (K10).
 
     Returns:
         (fps_idx [B, G] int32, interp_idx [B, N, 3] int32,
@@ -253,12 +280,16 @@ def fps_with_interp(
         (fps_idx, centers [B, G, 3] f32, interp_idx, interp_weight).
     """
     if candidates is not None:
-        raise NotImplementedError(
-            "approximate FPS (candidates=) is not ported; see ROADMAP.md")
-    run = fps_interp_cuda if points.is_cuda else fps_interp_plain
-    fps_idx, centers, idx, d2 = run(points, num_samples, valid=valid)
-    inv = 1.0 / torch.clamp_min(d2, eps)
-    weight = inv / inv.sum(-1, keepdim=True)
+        from .interp import compute_interp_weights  # interp imports this module
+
+        fps_idx = fps(points, num_samples, valid=valid, candidates=candidates)
+        centers = batch_index_select(points.float(), fps_idx, axis=1)
+        idx, weight = compute_interp_weights(points, centers, eps=eps)
+    else:
+        run = fps_interp_cuda if points.is_cuda else fps_interp_plain
+        fps_idx, centers, idx, d2 = run(points, num_samples, valid=valid)
+        inv = 1.0 / torch.clamp_min(d2, eps)
+        weight = inv / inv.sum(-1, keepdim=True)
     if with_centers:
         return fps_idx, centers, idx, weight
     return fps_idx, idx, weight

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models.pc_sam import cast_params_for_inference, for_inference
+from ..ops._cuda import resolve_device
 
 DEFAULT_POINT_BUCKETS = (2048, 8192, 32768, 131072, 524288)
 
@@ -65,9 +66,7 @@ class Predictor:
         """``device``: where the model and every tensor live; ``cuda``
         unless given (pass ``device="cpu"`` to run on the CPU). Raises when
         no device is given and there is no card."""
-        self.device = torch.device(device or "cuda")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError('no CUDA device: pass device="cpu" to run on the CPU')
+        self.device = resolve_device(device)
         self.model = for_inference(model).eval()
         self.model.to(self.device)
         if self.model.dtype != torch.float32:

@@ -37,13 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-
-def resolve_device(device: str | None) -> torch.device:
-    """``cuda`` unless another device is named; no silent CPU fallback."""
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
-    return dev
+from ..ops._cuda import resolve_device
 
 
 def to_device(batch: dict, device) -> dict:

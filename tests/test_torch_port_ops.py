@@ -210,9 +210,17 @@ def test_fps_cluster_points_match_the_kernel():
     assert cap == F.CLUSTER_POINTS == 131_072
 
 
-def test_fps_with_interp_candidates_not_ported(rng):
-    with pytest.raises(NotImplementedError):
-        ops.fps_with_interp(t(cloud(rng, 1, 64)), 8, candidates=32)
+def test_fps_with_interp_candidates_matches_jax(rng):
+    """Approximate FPS (a strided subset of 32 of 100 points, 100 / 32 not
+    exact) then K10's 3-NN: indices and centres equal to JAX's two-pass
+    path, weights within 1e-5 (JAX's CPU kNN forms d^2 by expansion)."""
+    pts = cloud(rng, 1, 100)
+    want = jops.fps_with_interp(pts, 8, candidates=32, with_centers=True)
+    got = ops.fps_with_interp(t(pts), 8, candidates=32, with_centers=True)
+    for i in range(3):
+        np.testing.assert_array_equal(n(got[i]), np.asarray(want[i]))
+    np.testing.assert_allclose(n(got[3]), np.asarray(want[3]), rtol=0, atol=1e-5)
+    assert set(n(got[0]).ravel()) <= set(np.floor(np.arange(32) * (100 / 32)).astype(int))
 
 
 # --------------------------------------------------------------- interp
