@@ -14,16 +14,18 @@ last line):
    gated; K7's four: the pass-C mma kernel, the pass-D mma kernel at both of
    its dw1a register tilings, and the one-launch kernel; FPS: the cluster
    route's selection kernel for K8 and K1, the grid route's cooperative
-   kernel in its two modes, K9's bins kernel, and the 3-NN scan that K1 /
-   K9 (<false>) and K10 (<true>) share; K4 / K11: the mma route's kernel
-   at D 128 and 256 and the fma route's, <true> K4, <false> K11);
+   kernel in its two modes, K9's bins kernel, the 3-NN scan that K1 /
+   K9 (<false>) and K10 (<true>) share, and K12's kNN selection
+   (csrc/knn.cu); K4 / K11: the mma route's kernel at D 128 and 256 and
+   the fma route's, <true> K4, <false> K11);
 3. end to end, tiny config, fp32 (a ViT of 2 heads of 64, so K3 runs; G=128
    so the decoder tail takes K4): the Predictor on the CPU (plain versions)
-   and on the card (kernels), same weights, cloud and 3 clicks;
+   and on the card (kernels, K12 among them), same weights, cloud and 3
+   clicks;
 4. the serving path: ViT-L (eva02_large) in bf16 with seeded random
    weights, a seeded 100k-point cloud (bucket 131072, G=2048, K=256),
-   set_pointcloud and 3 clicks, with every kernel's launches read around
-   that run, by shape (each wrapper tallies its launches by the sizes and
+   set_pointcloud and 3 clicks (the tokenizer's kNN is K12, exact), with
+   every kernel's launches read around that run, by shape (each wrapper tallies its launches by the sizes and
    dtypes it was called with);
 5. each kernel of the serving path against its plain torch version at
    every shape and dtype that path launched it with, on seeded inputs, both
@@ -62,7 +64,8 @@ last line):
 10. the hier serving path: ``build_model`` of configs/model/hier.yaml
    (EVA02-L ViT, G=(2048, 512), K=(32, 32), radii (0.05, 0.1)) in bf16,
    the Predictor over the same cloud, set_pointcloud and 3 clicks at the
-   model's grouping (K8, K10 twice, K2 at four shapes, K3, K4), then again
+   model's grouping (K8, K10 twice, K12 twice, K2 at four shapes, K3, K4),
+   then again
    with the Predictor's level-1 override group_number=4096 (the tail's
    K4 gate fails: the gather and K11), launches read by shape around each;
 11. as 5, for every kernel of both hier runs, and the decoder tail at the
@@ -74,26 +77,38 @@ last line):
    ``knn_method="approx"``: K9 once per encode (K1's launch on the padded
    cloud, on the route ``fps_route`` gives, then the bins kernel over its
    centres and a top-k over 4096 bins) and neither K1's wrapper nor the
-   exact kNN; then as 5 for its kernels: K9's five outputs and its bins
+   exact kNN (K12); then as 5 for its kernels: K9's five outputs and its bins
    (cd / ci, given K1's centres) held bit for bit to their plain versions,
    its kNN to a recall >= 0.9 against the exact kNN; its route and time a
    selection step printed, and the bins kernel and the top-k also timed
    alone (the bins with their own bound);
+12k. K12 against ``knn_select_plain`` bit for bit (indices and d^2) at
+   the shapes its paths launch it with (serve [1, 2048] x [1, 131072] at
+   k = 256 with 100k valid keys; train [2, 1024] x [2, 10000] at k = 256;
+   hier [1, 2048] x [1, 131072] and [1, 512] x [1, 2048] at k = 32), in
+   approximate mode at the serve shape at recall targets 0.9 and 0.95
+   (4096 and 8192 bins; the recall against its exact mode printed and at
+   least the target), with every key four times (ties) and with only k
+   valid keys; each timed as 5, beside its bound and, in exact mode, the
+   exact search as one cuBLAS product and torch.topk (``K12_CASES``);
 12e. the interactive evaluator, tiny: ``evaluate_scene`` with the fp32
    model of 3 on the CPU (plain versions) and on the card, one synthetic
    scene of 1500 points padded to 2048, 7 instances in chunks of 2 (the
-   last partial), 3 clicks, exact (K1-K4) and with ``fps_candidates=1024``
-   (K8 on the subset, K10): IoUs per instance and click within 1e-5;
+   last partial), 3 clicks, exact (K1-K4, K12) and with
+   ``fps_candidates=1024`` (K8 on the subset, K10, K12): IoUs per instance
+   and click within 1e-5;
 12f. the flagship evaluation: 2 synthetic scenes of 100,000 points written
    by ``serving/make_assets.py``, the bf16 ViT-L (G=2048, K=256, bucket
-   131072), 5 clicks, 4 masks a batch, in three arms: ``evaluate_directory``
-   (exact: K1), then ``evaluate_scene`` with ``fps_candidates=32768`` (K8 on
-   the subset, K10) and with ``knn_method="approx"`` (K9); per arm the mIoU
+   131072), 5 clicks, 4 masks a batch, in four arms: ``evaluate_directory``
+   (exact: K1, K12), then ``evaluate_scene`` with ``fps_candidates=32768``
+   (K8 on the subset, K10, K12), with ``knn_method="approx"`` (K9, no K12)
+   and with ``knn_method="approx", knn_recall_target=0.95`` (K9's gate
+   fails: K1, then K12 over 8192 bins); per arm the mIoU
    per click (finite, in [0, 1]; seeded weights), each scene's ms and the
    click sampler's share of it (CUDA events), peak memory and exact launch
    counts; then as 5 for every kernel of each arm (paths ``eval``,
-   ``eval-fpscand``, ``eval-fusedgeom``: K2 and K4 at BM=4, K8 on the
-   32768-point subset among them);
+   ``eval-fpscand``, ``eval-fusedgeom``, ``eval-approx95``: K2 and K4 at
+   BM=4, K8 on the 32768-point subset among them);
 12s. the demo server: ``build_server`` over a bf16 ViT-L Predictor on
    127.0.0.1 in a thread, over HTTP: GET /pointcloud of a 12f asset, three
    POST /segment, /next, /save; each seg bit-equal to ``Predictor.click``
@@ -118,7 +133,7 @@ last line):
    clicks and every grad bit-equal;
 14. the training path: ViT-L through ``trainer.main`` with the reference
    recipe (configs/large.yaml on synthetic data: B=2, N=10,000, M=2,
-   G=1024, K=256, 5 click iterations, bf16 compute, fp32 AdamW), 5 steps,
+   G=1024, K=256 (K12), 5 click iterations, bf16 compute, fp32 AdamW), 5 steps,
    with the launches read around that run, by shape;
 15. as 5, for every kernel of the training path (K1-K4 forward, K6 and K7
    backward; SDPA's backward is K6's yardstick). K2 runs there with its
@@ -162,7 +177,7 @@ last line):
    G=(2048, 512), K=(32, 32), 8 click iterations with the random sampler,
    per-block remat) through ``trainer.main``, 5 steps on the synthetic set,
    checked as 14, launches a step: K3 >= 48, K6 >= 24, K2 and K7 >= 16, K4
-   >= 8, K8 >= 1, K10 >= 2, none of K1, K5, K9, K11; K7 with dx exactly
+   >= 8, K8 >= 1, K10 >= 2, K12 >= 2, none of K1, K5, K9, K11; K7 with dx exactly
    at the two level-2 shapes (C_in = 131);
 15h. as 5, for every kernel of the hier training run (path
    ``hier-train``): K2 with its argmax outputs and K7 (with dx at level 2,
@@ -182,7 +197,7 @@ last line):
    the process. Each session opens with the profiled call once as a traced
    warm-up whose records are dropped, and its device total leaves out
    ranges (the profiler's and the optimizer's steps) and may not exceed its
-   wall time. Every launch that K1-K5, K8-K11
+   wall time. Every launch that K1-K5, K8-K12
    count in a profiled step, encode or click must show in its trace (a
    session that lost one is retaken, at most 3 in all), and each profiled
    encode's geometry must equal its warm-up's bit for bit.
@@ -491,6 +506,9 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
                     parts={"bins": (bins, (bins_bytes, {"fp32": 9.0 * B * n_real * G})),
                            "top_k": (lambda: F.bins_top_k(cd, ci, k, N), None)})
 
+    if name == "K12":
+        return knn_case(torch, K, key, g, cloud)
+
     if name == "K10":
         B, N, G = key["B"], key["N"], key["G"]
         query, _, _ = cloud(B, N, N > N_FLAGSHIP)
@@ -638,6 +656,81 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
             **tail_routes_of(UP, key, D, C, cdt, lambda r: UP._launch_upscale_hyper(
                 x, params, hyper, cdt, r)))
     raise ValueError(name)
+
+
+# Phase 12k: K12 at the shapes its paths launch it with (the serve cloud:
+# 100,000 valid keys in the 131072 bucket; the train batch; hier's two
+# levels), its approximate mode at the serve shape at recall targets 0.9
+# and 0.95 (``approx_bins``: 4096 and 8192 bins), every key four times
+# (ties) and a row of only k valid keys.
+SERVE_KNN = dict(B=1, Nq=2048, Nk=131072)
+K12_CASES = (
+    dict(SERVE_KNN, k=256, valid=True, bins=None),
+    dict(B=2, Nq=1024, Nk=10000, k=256, valid=False, bins=None),
+    dict(SERVE_KNN, k=32, valid=True, bins=None),
+    dict(B=1, Nq=512, Nk=2048, k=32, valid=False, bins=None),
+    dict(SERVE_KNN, k=256, valid=True, bins=4096, rt=0.9),
+    dict(SERVE_KNN, k=256, valid=True, bins=8192, rt=0.95),
+    dict(SERVE_KNN, k=256, valid=False, bins=None, case="ties"),
+    dict(B=1, Nq=256, Nk=131072, k=256, valid=True, bins=None, case="few_valid"),
+)
+
+
+def knn_case(torch, K, key: dict, g, cloud) -> dict:
+    """Kernel K12 at one launch key (or a K12_CASES entry): the keys a
+    seeded cloud (``cloud``), the queries a seeded subset of its real
+    points; held to ``knn_select_plain`` bit for bit. The approximate mode
+    also against K12's exact mode: its recall (the mean share of each
+    query's k nearest keys it returns) printed, at least the bins'
+    expected recall exp(-(k - 1) / L) less 0.02 and at least the key's
+    recall target where it names one. Work: ~8 fp32 operations a (query,
+    key) pair (the 3 FMAs of the cross term, its combination with the
+    norms, the compare); the points read once, the outputs written once.
+    Library: the exact search as one cuBLAS product and torch.topk (the
+    port's exact path before K12), for the exact mode."""
+    dev = torch.device("cuda")
+    B, nq, nk, k, bins = (key[f] for f in ("B", "Nq", "Nk", "k", "bins"))
+    keys, valid, real = cloud(B, nk, key["valid"])
+    if key.get("case") == "ties":
+        real = nk // 4
+        keys = keys[:, :real].repeat(1, 4, 1).contiguous()
+    elif key.get("case") == "few_valid":
+        valid = torch.zeros((B, nk), dtype=torch.bool, device=dev)
+        valid[:, torch.randperm(nk, generator=g, device=dev)[:k]] = True
+    query = keys[:, torch.randperm(real, generator=g, device=dev)[:nq]].contiguous()
+    stats = {}
+
+    def equal(got, want):
+        check(torch.equal(got[1], want[1])
+              and torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+              f"K12 {key}: differs from knn_select_plain")
+        if bins is not None:
+            _, truth = K.knn_select_cuda(query, keys, k, key_valid=valid)
+            hit = (got[1][..., :, None] == truth[..., None, :]).any(-1).float().mean().item()
+            want_hit = max(math.exp(-(k - 1) / bins) - 0.02, key.get("rt", 0.0))
+            if "rt" in key:
+                check(K.approx_bins(nk, k, key["rt"])[0] == bins, f"K12 {key}: not XLA's bins")
+            check(hit >= want_hit, f"K12 {key}: recall {hit:.4f} < {want_hit:.4f}")
+            stats["recall"] = hit
+            print(f"K12 approximate recall against its exact mode: {hit:.4f} ({key})",
+                  flush=True)
+        return 0.0
+
+    def library():
+        from point_sam_tpu_torch.ops.distance import sq_dist
+
+        d2 = sq_dist(query, keys)
+        if valid is not None:
+            d2 = d2.masked_fill(~valid[:, None, :], float("inf"))
+        return torch.topk(d2, k, dim=-1, largest=False)
+
+    nbytes = B * (nq * 12 + nk * (12 + (valid is not None)) + nq * k * 8)
+    case = dict(run=lambda: K.knn_select_cuda(query, keys, k, key_valid=valid, bins=bins),
+                plain=lambda: K.knn_select_plain(query, keys, k, key_valid=valid, bins=bins),
+                compare=equal, work=(nbytes, {"fp32": 8.0 * B * nq * nk}), stats=stats)
+    if bins is None:
+        case["library"] = library
+    return case
 
 
 def tail_routes_of(UP, key: dict, D: int, C: int, cdt, launch) -> dict:
@@ -862,7 +955,8 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
     rows = []
     for name, shapes in shapes_by_kernel.items():
         keys = [dict(k) for k in shapes]
-        varying = [f for f in keys[0] if len({str(k[f]) for k in keys}) > 1] if keys else []
+        fields = dict.fromkeys(f for k in keys for f in k)
+        varying = [f for f in fields if len({str(k.get(f)) for k in keys}) > 1]
         for key_t, key in zip(shapes, keys):
             case = kernel_case(torch, np, mods, name, key, g)
             want = case["plain"]()
@@ -872,7 +966,8 @@ def check_kernels(torch, np, mods, shapes_by_kernel: dict, path: str) -> list:
             del want
             torch.cuda.empty_cache()
             row = dict(kernel=name, path=path, shape=key, launches=shapes[key_t],
-                       variant=",".join(f"{f}={key[f]}" for f in varying), max_abs_err=err,
+                       variant=",".join(f"{f}={key.get(f)}" for f in varying), max_abs_err=err,
+                       **case.get("stats", {}),
                        ms=time_ms(torch, case["run"]),
                        device_ms=time_ms(torch, case["run"], ahead=True),
                        plain_ms=time_ms(torch, case["plain"], reps=3),
@@ -1101,7 +1196,7 @@ def resource_usage(lib) -> None:
         m = re.search(r"\d+((?:attn_bwd|mha_kernel)\w*?)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
         k2 = re.search(r"\d+(patch_encoder(?:_mma|_bwd(?:_c_mma|_d_mma)?)?_kernel)"
                        r"(?:I(f|13__nv_bfloat16|Li\d+E)E)?", mangled)
-        fk = re.search(r"\d+((?:fps_interp|fps_cluster|nn3|knn_bins)_kernel)"
+        fk = re.search(r"\d+((?:fps_interp|fps_cluster|nn3|knn_bins|knn_select)_kernel)"
                        r"(?:I((?:L[bi]\d+E)+)E)?", mangled)
         up = re.search(r"\d+(interp_upscale(?:_mma)?_kernel)I((?:f|13__nv_bfloat16|L[bi]\d+E)+)E",
                        mangled)
@@ -1439,7 +1534,8 @@ def train_step_tiny(torch, np, P, PS, criterion, counters):
                            prompt_iters=3, enable_mask_refinement_iterations=False)
     cpu_model = P.PointCloudSAM(cfg, generator=torch.Generator().manual_seed(0))
     step, gg = tiny_train_check(torch, np, PS, criterion, counters, cpu_model,
-                                "train step tiny", ("K1", "K2", "K3", "K6", "K7", "K11"),
+                                "train step tiny",
+                                ("K1", "K2", "K3", "K6", "K7", "K11", "K12"),
                                 loose=("pc_encoder.patch_embed.patch_encoder.",
                                        "mask_encoder.patch_encoder."))
     group = importlib.import_module("point_sam_tpu_torch.ops.group")
@@ -1529,7 +1625,7 @@ def train_step_tiny_hier(torch, np, P, PS, criterion, counters):
         sample_prompts(coords, gt, pred, point_valid=point_valid))
     try:
         step, gg = tiny_train_check(torch, np, PS, criterion, counters, cpu_model, label,
-                                    ("K2", "K3", "K4", "K6", "K7", "K8", "K10"),
+                                    ("K2", "K3", "K4", "K6", "K7", "K8", "K10", "K12"),
                                     loose=("pc_encoder.patch_embed.", "mask_encoder."))
         off = differ(torch, gg, step("cuda", remat=False)[2])
     finally:
@@ -1563,11 +1659,13 @@ K6_STAGES = (("K6 attention bwd, query pass", ("attn_bwd_query",)),
 # csrc/fps_interp.cu: on the grid route fps_interp_kernel<0> is K8, <1> K1;
 # on the cluster route fps_cluster_kernel<false, R> is K8, and <true, R>
 # with nn3_kernel<false> (csrc/nn3.cuh, the 3-NN launch) K1. K9 runs K1's
-# launch, then knn_bins_kernel; K10 is nn3_kernel<true>.
+# launch, then knn_bins_kernel; K10 is nn3_kernel<true>; K12 (csrc/knn.cu)
+# knn_select_kernel.
 FPS_STAGES = (("K1 / K9 FPS + 3-NN",
                ("fps_interp_kernel<1>", "fps_cluster_kernel<true", "nn3_kernel<false")),
               ("K8 FPS", ("fps_interp_kernel<0>", "fps_cluster_kernel<false")))
 K10_STAGE = ("K10 3-NN weights", ("nn3_kernel<true",))
+K12_STAGE = ("K12 kNN select", ("knn_select_kernel",))
 SCATTER_STAGE = ("torch scatter / gather (scatter max, gathers)", ("scatter",))
 # The train steps of all three recipes (kNN ViT-L, voronoi ViT-L and
 # EVA-giant) share these stages.
@@ -1577,11 +1675,12 @@ TRAIN_STAGES = (("K7 pass C (mma)", ("patch_encoder_bwd_c_mma",)),
                 ("K7 one launch", ("patch_encoder_bwd_kernel",)),
                 ("K2 patch encoder", ("patch_encoder",)), *K6_STAGES,
                 ("K3 / K5 attention", ("mha_kernel",)),
-                ("K4 / K11 decode tail", ("interp_upscale",)), *FPS_STAGES, K10_STAGE, SCATTER_STAGE, MATMULS)
-ENCODE_STAGES = (*FPS_STAGES, ("K9 kNN bins", ("knn_bins_kernel",)), K10_STAGE,
+                ("K4 / K11 decode tail", ("interp_upscale",)), *FPS_STAGES, K10_STAGE,
+                K12_STAGE, SCATTER_STAGE, MATMULS)
+ENCODE_STAGES = (*FPS_STAGES, ("K9 kNN bins", ("knn_bins_kernel",)), K10_STAGE, K12_STAGE,
                  ("K2 patch encoder", ("patch_encoder",)),
                  ("K3 / K5 attention", ("mha_kernel",)),
-                 ("torch top-k / sort (exact kNN, K9's bins)", ("topk", "TopK", "sort", "Sort")),
+                 ("torch top-k / sort (K9's bins)", ("topk", "TopK", "sort", "Sort")),
                  SCATTER_STAGE, MATMULS)
 # A click: the mask encoder's K2 (refining clicks), the decoder's
 # attention (cuBLAS matmuls and elementwise kernels), the tail (K4, or the
@@ -1594,7 +1693,7 @@ CLICK_STAGES = (("K4 / K11 decode tail", ("interp_upscale",)),
 STAGE_WRAPPERS = {"K1 / K9 FPS + 3-NN": ("K1", "K9"), "K8 FPS": ("K8",),
                   "K9 kNN bins": ("K9",), "K10 3-NN weights": ("K10",),
                   "K2 patch encoder": ("K2",), "K3 / K5 attention": ("K3", "K5"),
-                  "K4 / K11 decode tail": ("K4", "K11")}
+                  "K4 / K11 decode tail": ("K4", "K11"), "K12 kNN select": ("K12",)}
 
 
 def profile(torch, label, fn, stages, counters=None, tries=3):
@@ -1785,7 +1884,8 @@ def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
     overrides = ["train_dataset.dataset.source=synthetic", "train_dataset.dataset.num_scenes=16"]
     shapes, result, cfg = train_run(
         torch, trainer, build_model, load_config, counters, "large", overrides,
-        {"K1": 1, "K2": 5, "K3": 24, "K4": 5, "K6": 24, "K7": 5}, ("K5", "K8", "K9", "K10"),
+        {"K1": 1, "K2": 5, "K3": 24, "K4": 5, "K6": 24, "K7": 5, "K12": 1},
+        ("K5", "K8", "K9", "K10"),
         "ViT-L (configs/large.yaml, synthetic): B=2, N=10000, M=2, G=1024, K=256, 5 click "
         "iterations, bf16 compute", steps)
     return shapes, lambda: profile_step(torch, result, cfg, cfg.get("seed", 42), counters)
@@ -1811,11 +1911,11 @@ VORONOI_TRAIN = (
     ("voronoi_large", "voronoi-train",
      "voronoi ViT-L (configs/voronoi_large.yaml, synthetic): B=32, N=10000, M=2, G=1024, 5 click "
      "iterations, bf16 compute, remat", {"K3": 48, "K4": 5, "K6": 24, "K8": 1, "K10": 1},
-     ("K1", "K2", "K5", "K7", "K9", "K11")),
+     ("K1", "K2", "K5", "K7", "K9", "K11", "K12")),
     ("voronoi_giant", "giant-train",
      "voronoi EVA-giant (configs/voronoi_giant.yaml, synthetic): B=16, N=10000, M=2, G=1024, 10 "
      "click iterations, bf16 compute, remat", {"K4": 10, "K5": 80, "K8": 1, "K10": 1},
-     ("K1", "K2", "K3", "K6", "K7", "K9", "K11")),
+     ("K1", "K2", "K3", "K6", "K7", "K9", "K11", "K12")),
 )
 
 
@@ -1883,7 +1983,7 @@ def train_hier(torch, trainer, build_model, load_config, counters, steps=5) -> d
 
     shapes, result, _ = train_run(
         torch, trainer, build_model, load_config, counters, "large", hier_overrides(load_config),
-        {"K2": 16, "K3": 48, "K4": 8, "K6": 24, "K7": 16, "K8": 1, "K10": 2},
+        {"K2": 16, "K3": 48, "K4": 8, "K6": 24, "K7": 16, "K8": 1, "K10": 2, "K12": 2},
         ("K1", "K5", "K9", "K11"),
         "hier EVA02-L (configs/large.yaml, model configs/model/hier.yaml, synthetic): B=2, "
         "N=10000, M=2, G=(2048, 512), K=(32, 32), 8 click iterations, bf16 compute, remat", steps)
@@ -1931,8 +2031,8 @@ def profile_train_steps(torch, build_model, load_config, counters, runs):
 
 # Phases 12e, 12f and 12s: evaluation and the demo server.
 EVAL_TINY_ARMS = (
-    ("exact", {}, ("K1", "K2", "K3", "K4"), ("K8", "K9", "K10")),
-    ("fps_candidates=1024", {"fps_candidates": 1024}, ("K2", "K3", "K4", "K8", "K10"),
+    ("exact", {}, ("K1", "K2", "K3", "K4", "K12"), ("K8", "K9", "K10")),
+    ("fps_candidates=1024", {"fps_candidates": 1024}, ("K2", "K3", "K4", "K8", "K10", "K12"),
      ("K1", "K9")),
 )
 
@@ -1979,11 +2079,14 @@ def eval_tiny(torch, np, cpu_model, counters) -> None:
 # Phase 12f: the arms of the flagship evaluation, (path, the evaluator's
 # arguments, what it is, kernels that must launch, kernels that must not).
 EVAL_ARMS = (
-    ("eval", {}, "exact FPS and kNN", ("K1",), ("K8", "K9", "K10")),
+    ("eval", {}, "exact FPS and kNN", ("K1", "K12"), ("K8", "K9", "K10")),
     ("eval-fpscand", {"fps_candidates": 32768}, "approximate FPS, 32768 candidates",
-     ("K8", "K10"), ("K1", "K9")),
+     ("K8", "K10", "K12"), ("K1", "K9")),
     ("eval-fusedgeom", {"knn_method": "approx"}, 'knn_method="approx"', ("K9",),
-     ("K1", "K8", "K10")),
+     ("K1", "K8", "K10", "K12")),
+    ("eval-approx95", {"knn_method": "approx", "knn_recall_target": 0.95},
+     'knn_method="approx", knn_recall_target=0.95 (K9\'s gate fails: K1, then K12 over 8192 '
+     'bins)', ("K1", "K12"), ("K8", "K9", "K10")),
 )
 
 
@@ -2087,7 +2190,7 @@ def serve_http(torch, np, model, counters, workdir) -> None:
     positive), /next and /save. Each seg has N entries and equals, bit for
     bit, the mask of ``Predictor.click`` on the same normalised cloud and
     clicks; the launches of each request are read around it (the encode:
-    K1 1, K2 1, K3 24; a click: K4 1, and K2 1 on a refining click); each
+    K1 1, K2 1, K3 24, K12 1; a click: K4 1, and K2 1 on a refining click); each
     request's wall ms printed. The server is shut down and its thread
     joined."""
     import threading
@@ -2119,7 +2222,8 @@ def serve_http(torch, np, model, counters, workdir) -> None:
             timings.append(f"{label} {ms:.1f} ms")
             return body
 
-        cloud = request(f"GET /pointcloud/{name}", f"/pointcloud/{name}", K1=1, K2=1, K3=24)
+        cloud = request(f"GET /pointcloud/{name}", f"/pointcloud/{name}", K1=1, K2=1, K3=24,
+                        K12=1)
         xyz = np.asarray(cloud["xyz"], np.float32).reshape(-1, 3)
         rgb = np.asarray(cloud["rgb"], np.float32).reshape(-1, 3)
         check(xyz.shape == rgb.shape == (N_FLAGSHIP, 3), f"server: cloud {xyz.shape}")
@@ -2199,13 +2303,13 @@ def main() -> int:
                 "K4": UP.interp_upscale_cuda, "K5": A.mha_heads_cuda,
                 "K6": A.mha_packed_bwd_cuda, "K7": PE.patch_encoder_bwd_cuda,
                 "K8": F.fps_cuda, "K9": F.fps_interp_knn_cuda, "K10": IW.interp_weights_cuda,
-                "K11": UP.upscale_hyper_cuda}
+                "K11": UP.upscale_hyper_cuda, "K12": K.knn_select_cuda}
     dev = torch.device("cuda")
 
     tiny = P.PointCloudSAM(P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT),
                                             tokenizer=P.TokenizerConfig(128, 16)),
                            generator=torch.Generator().manual_seed(0)).eval()
-    end_to_end_tiny(torch, np, tiny, "e2e tiny", counters, ("K1", "K2", "K3", "K4"))
+    end_to_end_tiny(torch, np, tiny, "e2e tiny", counters, ("K1", "K2", "K3", "K4", "K12"))
 
     def vit_l(knn_method="auto"):
         tok = P.TokenizerConfig(knn_method=knn_method)
@@ -2222,7 +2326,7 @@ def main() -> int:
                            generator=torch.Generator(device=dev).manual_seed(0))
 
     serve_shapes = serve(torch, np, Predictor(vit_l()), counters, "flagship ViT-L",
-                         {"K1": 1, "K2": 2, "K3": 24, "K4": 3}, absent=("K9",))
+                         {"K1": 1, "K2": 2, "K3": 24, "K4": 3, "K12": 1}, absent=("K9",))
     rows = check_kernels(torch, np, mods, serve_shapes, "serve")
     torch.cuda.empty_cache()
     attention_edges(torch, A)
@@ -2232,7 +2336,8 @@ def main() -> int:
                                 generator=torch.Generator().manual_seed(0)).eval()
     end_to_end_tiny(torch, np, tiny_nn, "e2e tiny voronoi", counters, ("K5", "K8", "K10", "K11"))
     voronoi = serve(torch, np, Predictor(giant()), counters, "voronoi EVA-giant",
-                    {"K4": 3, "K5": 40, "K8": 1, "K10": 1}, group=(2048, None))
+                    {"K4": 3, "K5": 40, "K8": 1, "K10": 1}, group=(2048, None),
+                    absent=("K12",))
     k5 = sum(voronoi["K5"].values())
     check(k5 == 40, f"voronoi EVA-giant: K5 launched {k5} times, not once per block (40)")
     torch.cuda.empty_cache()
@@ -2246,15 +2351,15 @@ def main() -> int:
                      tokenizer=P.HierTokenizerConfig((128, 32), (16, 8), (0.05, 0.1))),
         generator=torch.Generator().manual_seed(0)).eval()
     end_to_end_tiny(torch, np, tiny_hier, "e2e tiny hier", counters,
-                    ("K2", "K3", "K4", "K8", "K10"))
+                    ("K2", "K3", "K4", "K8", "K10", "K12"))
     end_to_end_tiny(torch, np, tiny_hier, "e2e tiny hier, group_number=64", counters,
-                    ("K2", "K3", "K8", "K10", "K11"), group_number=64)
+                    ("K2", "K3", "K8", "K10", "K11", "K12"), group_number=64)
     pred = Predictor(hier())
     hier_shapes = serve(torch, np, pred, counters, "hier EVA02-L",
-                        {"K2": 2, "K3": 24, "K4": 3, "K8": 1, "K10": 2},
+                        {"K2": 2, "K3": 24, "K4": 3, "K8": 1, "K10": 2, "K12": 2},
                         group=((2048, 512), (32, 32)), tokens=512, absent=("K11",))
     hier_big = serve(torch, np, pred, counters, "hier EVA02-L, group_number=4096",
-                     {"K2": 2, "K3": 24, "K8": 1, "K10": 2, "K11": 3},
+                     {"K2": 2, "K3": 24, "K8": 1, "K10": 2, "K11": 3, "K12": 2},
                      group=((4096, 512), (32, 32)), tokens=512, absent=("K4",),
                      group_number=4096)
     tail_routes(torch, UP, pred, counters)
@@ -2265,22 +2370,15 @@ def main() -> int:
     rows += check_kernels(torch, np, mods, hier_big, "hier4096")
 
     # The fused-geometry path: the ViT-L of phase 4 with knn_method="approx".
-    # The exact kNN is plain torch (no launch counter), so its calls from the
-    # tokenizer are counted here.
-    T = importlib.import_module("point_sam_tpu_torch.models.tokenizer")
-    exact_knn = T.knn
-    knn_calls = []
-    T.knn = lambda *a, **kw: (knn_calls.append(1), exact_knn(*a, **kw))[1]
-    try:
-        fused = serve(torch, np, Predictor(vit_l("approx")), counters, "fused-geometry ViT-L",
-                      {"K2": 2, "K3": 24, "K4": 3, "K9": 1}, absent=("K1",))
-        k9 = sum(fused["K9"].values())
-        check(k9 == 1, f"fused-geometry ViT-L: K9 launched {k9} times in one encode")
-        check(not knn_calls, f"fused-geometry ViT-L: the exact kNN ran {len(knn_calls)} times")
-    finally:
-        T.knn = exact_knn
+    fused = serve(torch, np, Predictor(vit_l("approx")), counters, "fused-geometry ViT-L",
+                  {"K2": 2, "K3": 24, "K4": 3, "K9": 1}, absent=("K1", "K12"))
+    k9 = sum(fused["K9"].values())
+    check(k9 == 1, f"fused-geometry ViT-L: K9 launched {k9} times in one encode")
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, fused, "fusedgeom")
+    # Phase 12k: K12 alone at the paths' shapes, both modes, ties, invalid keys.
+    rows += check_kernels(torch, np, mods, {"K12": {tuple(c.items()): 0 for c in K12_CASES}},
+                          "knn")
 
     # Evaluation and the demo server: the tiny evaluator on the card against
     # the CPU, the flagship evaluation in three arms, then the HTTP server.
@@ -2342,6 +2440,8 @@ def main() -> int:
         "K9": ("fps_interp_knn", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:284"),
         "K10": ("interp_weights", "interp.cu", "point_sam_tpu/ops/interp_pallas.py:33"),
         "K11": ("upscale_hyper", "upscale.cu", "point_sam_tpu/ops/upscale_pallas.py:54"),
+        # Not a pallas_call: lax.approx_min_k (and lax.top_k at :32, :284).
+        "K12": ("knn_select", "knn.cu", "point_sam_tpu/ops/knn.py:161"),
     }
     # One row per kernel, path and launch shape: its launches, error, times
     # and bound all belong to that shape on that path.
@@ -2358,7 +2458,7 @@ def main() -> int:
                       "ms_reduce", "fps_route", "us_per_step", "tail_route", "other_route",
                       "ms_other_route", "device_ms_other_route", "us_per_step_other_route",
                       "device_ms", "ms_bins", "device_ms_bins", "bound_ms_bins", "ms_top_k",
-                      "device_ms_top_k"):
+                      "device_ms_top_k", "recall"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -68,17 +68,21 @@ class InteractiveEvaluator:
     def __init__(self, model, *, device=None, num_clicks: int = 5,
                  point_buckets=(8192, 32768, 131072, 262144),
                  masks_per_batch: int = 4, knn_method: str = "auto",
-                 gk_policy: str = "bucket_pow2", fps_candidates: int | None = None):
+                 gk_policy: str = "bucket_pow2", fps_candidates: int | None = None,
+                 knn_recall_target: float = 0.9):
         """Args beyond the obvious:
 
         device: where the model and every tensor live; ``cuda`` unless
             given (pass ``device="cpu"`` to run on the CPU). Raises when no
             device is given and there is no card.
         knn_method: the tokenizer's G x K neighbour search. "auto" and
-            "exact" take the exact search. "approx" takes kernel K9's fused
-            geometry (FPS, 3-NN and a binned kNN from one pass) where its
-            shape gate holds and raises elsewhere: the port's "approx" is
-            K9's binned search, not JAX's ``lax.approx_min_k``.
+            "exact" take the exact search (K12 on the card). "approx" takes
+            kernel K9's fused geometry (FPS, 3-NN and a binned kNN from one
+            pass) where its gate holds, and elsewhere the approximate
+            search (K12 over strided bins, the port's ``lax.approx_min_k``).
+        knn_recall_target: the approximate search's recall target
+            (``TokenizerConfig.knn_recall_target``); above 0.93 K9's gate
+            fails.
         fps_candidates: approximate FPS (``ops.fps`` ``candidates``):
             centres are selected from a strided subset of this many points.
             None = exact FPS (reference parity).
@@ -102,6 +106,7 @@ class InteractiveEvaluator:
         self.knn_method = knn_method
         self.gk_policy = gk_policy
         self.fps_candidates = fps_candidates
+        self.knn_recall_target = knn_recall_target
 
     def _bucket(self, n):
         for b in self.point_buckets:
@@ -117,7 +122,8 @@ class InteractiveEvaluator:
         kw = dict(radius=tok.radius,
                   centralize_features=tok.centralize_features,
                   knn_method=self.knn_method,
-                  fps_candidates=self.fps_candidates)
+                  fps_candidates=self.fps_candidates,
+                  knn_recall_target=self.knn_recall_target)
         if self.gk_policy == "reference":
             # eval_kitti.py:350-362 verbatim: per-scene G, fixed K=256.
             if n > 30000:
@@ -220,8 +226,8 @@ def evaluate_directory(
     layout evalsuite/prepare_kitti.py and serving/make_assets.py write).
 
     ``evaluator_kwargs`` pass through to ``InteractiveEvaluator``:
-    gk_policy / knn_method / fps_candidates / masks_per_batch /
-    point_buckets.
+    gk_policy / knn_method / knn_recall_target / fps_candidates /
+    masks_per_batch / point_buckets.
     """
     from ..utils.ply import load_ply
 
@@ -316,8 +322,11 @@ def main(argv=None):
     parser.add_argument(
         "--knn-method", default="auto", choices=["auto", "exact", "approx"],
         help="tokenizer G x K neighbour search: auto / exact = the exact "
-        "search; approx = kernel K9's binned search where its shape gate "
-        "holds (raises elsewhere)")
+        "search; approx = kernel K9's binned search where its gate holds, "
+        "else the approximate search at --recall-target")
+    parser.add_argument(
+        "--recall-target", "--recall_target", dest="recall_target", type=float,
+        default=0.9, help="per-neighbour recall target for the approx kNN path")
     parser.add_argument(
         "--fps-candidates", type=int, default=None,
         help="approximate FPS: sample centers from a strided subset of "
@@ -337,7 +346,7 @@ def main(argv=None):
         num_clicks=args.num_clicks, max_scenes=args.max_scenes,
         category_from_name=category_from_name,
         gk_policy=args.gk_policy, knn_method=args.knn_method,
-        fps_candidates=args.fps_candidates,
+        knn_recall_target=args.recall_target, fps_candidates=args.fps_candidates,
         masks_per_batch=args.masks_per_batch,
     )
     print(json.dumps(report, indent=2))

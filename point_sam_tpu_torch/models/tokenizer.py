@@ -28,13 +28,17 @@ from ..ops import (
 class TokenizerConfig:
     """Grouping hyperparameters (reference configs/model/*.yaml:6-9).
 
-    ``knn_method``: "auto" / "exact" select the exact search. "approx"
-    selects the fused geometry (kernel K9: FPS, interp and a binned kNN of
-    expected recall ~0.97 at K=256 from one pass) where its shape gate
-    holds; elsewhere it raises, as the approximate search it stands for in
-    JAX (``lax.approx_min_k``) is not ported (ROADMAP.md, approx-kNN kernel).
+    ``knn_method``: "auto" / "exact" select the exact search (kernel K12
+    on the card). "approx" selects the fused geometry (kernel K9: FPS,
+    interp and a binned kNN of expected recall ~0.97 at K=256 from one
+    pass) where its gate holds (``ops.fps.fused_geometry_ok``, which asks
+    for ``knn_recall_target <= 0.93``); elsewhere FPS and interp (K1) and
+    the approximate search (``knn(method="approx")``: K12 over the bins
+    XLA's ``approx_min_k`` would use at ``knn_recall_target``).
     ``fps_candidates``: approximate FPS, the centres selected from a strided
     subset of this many points (``ops.fps(candidates=)``); None is exact FPS.
+    ``knn_recall_target``: the approximate search's recall target (JAX's
+    default 0.9, the evaluator's operating point).
     """
 
     num_patches: int = 512
@@ -43,6 +47,7 @@ class TokenizerConfig:
     centralize_features: bool = False
     knn_method: str = "auto"
     fps_candidates: int | None = None
+    knn_recall_target: float = 0.9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +79,7 @@ def compute_geometry(
             # FPS, centres, 3-NN interp and the tokenizer kNN from one pass
             # (kernel K9) where its gate holds; None otherwise.
             fused = fps_with_interp_knn(coords, cfg.num_patches, cfg.patch_size,
-                                        valid=point_valid)
+                                        valid=point_valid, recall_target=cfg.knn_recall_target)
             if fused is not None:
                 fps_idx, centers, idx, w, knn_idx = fused
                 return dict(fps_idx=fps_idx, centers=centers, knn_idx=knn_idx,
@@ -86,7 +91,7 @@ def compute_geometry(
         fps_idx = fps(coords, cfg.num_patches, valid=point_valid, candidates=cfg.fps_candidates)
         centers = batch_index_select(coords, fps_idx, axis=1)
     _, knn_idx = knn(centers, coords, cfg.patch_size, key_valid=point_valid,
-                     method=cfg.knn_method)
+                     method=cfg.knn_method, recall_target=cfg.knn_recall_target)
     out = dict(fps_idx=fps_idx, centers=centers, knn_idx=knn_idx)
     if with_interp:
         out["interp_index"], out["interp_weight"] = idx, w
@@ -130,9 +135,9 @@ def compute_geometry_hier(
     """Two-level geometry (reference PatchEmbedHier, pc_encoder.py:230-238):
     level 1 groups the cloud around G1 FPS centres (kernel K8 on the card);
     level 2 groups the level-1 centres around the first G2 of them (no
-    FPS). Both kNNs are exact. The 3-NN interp weights (kernel K10 on the
-    card) go from the points to the level-1 centres and from the level-1 to
-    the level-2 centres.
+    FPS). Both kNNs are exact (kernel K12 on the card). The 3-NN interp
+    weights (kernel K10 on the card) go from the points to the level-1
+    centres and from the level-1 to the level-2 centres.
 
     Returns dict(fps_idx1 [B,G1], centers1 [B,G1,3], knn_idx1 [B,G1,K1],
                  centers2 [B,G2,3], knn_idx2 [B,G2,K2], centers (= centers2),

@@ -14,6 +14,9 @@ kernel (autograd Functions):
   sizes) -> K5 (csrc/attention.cu), backward a plain torch recompute
 - ``fps_with_interp_knn`` -> K9 (csrc/fps_interp.cu: K1's launch, then the
   binned kNN over its centres), the tokenizer's ``knn_method="approx"``
+  where its gate holds
+- ``knn`` at k > 4 -> K12 (csrc/knn.cu), exact or over strided bins
+  (``method="approx"``); k <= 4 stays plain torch
 - ``decoder_tail`` -> K4 (``interp_upscale_hyper_fused``, interpolation
   fused in) or a plain 3-NN gather and K11 (``upscale_hyper_fused``), both
   in csrc/upscale.cu, backward a plain torch recompute

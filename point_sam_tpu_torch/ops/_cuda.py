@@ -61,6 +61,7 @@ _SIGNATURES = {
     "psam_attention_heads": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "psam_upscale_hyper": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "psam_knn_bins": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "psam_knn_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

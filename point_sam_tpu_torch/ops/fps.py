@@ -432,20 +432,22 @@ def fps_interp_knn_cuda(points: torch.Tensor, num_samples: int, k: int, *,
     return idx, centers, interp_idx[:, :N], interp_d2[:, :N], knn_idx
 
 
-def fused_geometry_ok(B: int, N: int, num_samples: int, k: int) -> bool:
-    """The shape gate of JAX's fused geometry (``fps_with_interp_knn``):
-    B == 1, G % 128 == 0 and 3 <= G <= 2048, 16384 <= N <= 400000 and
-    4 < k <= 1024. JAX also asks for its TPU backend, ``PSAM_FUSED_GEOM=1``
-    and a recall target <= 0.93; the port's fused geometry is chosen by
-    ``knn_method="approx"`` alone, at JAX's default target 0.9 (the 4096
-    bins give an expected recall of about 1 - (k - 1) / 8192, 0.97 at
-    k = 256)."""
+def fused_geometry_ok(B: int, N: int, num_samples: int, k: int,
+                      recall_target: float = 0.9) -> bool:
+    """The gate of JAX's fused geometry (``fps_with_interp_knn``): B == 1,
+    G % 128 == 0 and 3 <= G <= 2048, 16384 <= N <= 400000, 4 < k <= 1024
+    and recall_target <= 0.93 (the 4096 bins give an expected recall of
+    about 1 - (k - 1) / 8192, 0.97 at k = 256, so a higher target takes
+    the composed path). JAX also asks for its TPU backend and
+    ``PSAM_FUSED_GEOM=1``; the port's fused geometry is chosen by
+    ``knn_method="approx"`` alone."""
     return (B == 1 and num_samples % 128 == 0 and 3 <= num_samples <= 2048
-            and 16_384 <= N <= 400_000 and 4 < k <= 1024)
+            and 16_384 <= N <= 400_000 and 4 < k <= 1024 and recall_target <= 0.93)
 
 
 def fps_with_interp_knn(points: torch.Tensor, num_samples: int, k: int, *,
-                        valid: torch.Tensor | None = None, eps: float = 1e-8):
+                        valid: torch.Tensor | None = None, eps: float = 1e-8,
+                        recall_target: float = 0.9):
     """FPS + centres + 3-NN interp + the tokenizer's k-NN from one pass of
     K9 (``fps_interp_knn_plain`` on a CPU tensor), or None where
     ``fused_geometry_ok`` fails.
@@ -455,7 +457,7 @@ def fps_with_interp_knn(points: torch.Tensor, num_samples: int, k: int, *,
          int32, interp_weight [B, N, 3] f32, knn_idx [B, G, k] int32) or None.
     """
     B, N, _ = points.shape
-    if not fused_geometry_ok(B, N, num_samples, k):
+    if not fused_geometry_ok(B, N, num_samples, k, recall_target):
         return None
     run = fps_interp_knn_cuda if points.is_cuda else fps_interp_knn_plain
     fps_idx, centers, idx, d2, knn_idx = run(points, num_samples, k, valid=valid)

@@ -132,8 +132,9 @@ def test_fused_geometry_gate_matches_jax(monkeypatch, B, N, G, k):
 
 def test_compute_geometry_on_the_cpu_composes():
     """``knn_method="approx"`` on a CPU tensor takes K9's plain version
-    where the gate holds and raises where it fails (the approximate search
-    is not ported); "auto" composes K1 and the exact kNN."""
+    where the gate holds and, where it fails, K1 and the approximate
+    search (K12's plain version over ``approx_bins``); "auto" composes K1
+    and the exact kNN."""
     rng = np.random.default_rng(1)
     coords = t(rng.uniform(-1, 1, (1, 16_384, 3)).astype(np.float32))
     approx = P.TokenizerConfig(num_patches=128, patch_size=16, knn_method="approx")
@@ -145,8 +146,16 @@ def test_compute_geometry_on_the_cpu_composes():
     for key in ("fps_idx", "centers", "interp_index", "interp_weight"):
         assert torch.equal(got[key], want[key]), key
     assert not torch.equal(got["knn_idx"], want["knn_idx"])
-    with pytest.raises(NotImplementedError):
-        P.compute_geometry(coords[:, :2000], approx)
+    small = coords[:, :2000]  # below the gate's 16384 points
+    got = P.compute_geometry(small, approx)
+    fps_idx, centers, idx, w = F.fps_with_interp(small, 128, with_centers=True)
+    bins = importlib.import_module("point_sam_tpu_torch.ops.knn").approx_bins(2000, 16, 0.9)[0]
+    assert bins < 2000
+    _, knn_idx = importlib.import_module("point_sam_tpu_torch.ops.knn").knn_select_plain(
+        centers, small, 16, bins=bins)
+    for key, want in (("fps_idx", fps_idx), ("centers", centers), ("interp_index", idx),
+                      ("interp_weight", w), ("knn_idx", knn_idx)):
+        assert torch.equal(got[key], want), key
 
 
 # ----------------------------------------------------------------- K11

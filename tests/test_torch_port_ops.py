@@ -139,9 +139,18 @@ def test_small_k_knn_equal(rng):
 
 
 def test_approx_knn_is_not_ported(rng):
-    q = t(cloud(rng, 1, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.knn(q, q, 4, method="approx")
+    """It is now: ``knn(method="approx")`` answers with K12's approximate
+    mode (its plain version on the CPU) over ``approx_bins(Nk, k, rt)``,
+    and against JAX's (exact on the CPU) only misses what the bins drop."""
+    K = importlib.import_module("point_sam_tpu_torch.ops.knn")
+    q, k = cloud(rng, 1, 16), cloud(rng, 1, 3000)
+    got_d, got_i = ops.knn(t(q), t(k), 64, method="approx", recall_target=0.9)
+    bins = K.approx_bins(3000, 64, 0.9)[0]
+    assert bins < 3000
+    want_d, want_i = K.knn_select_plain(t(q), t(k), 64, bins=bins)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    _, ji = jops.knn(q, k, 64, method="approx", recall_target=0.9)
+    assert np.isin(n(got_i), np.asarray(ji)).mean() >= np.exp(-63 / bins) - 0.02
 
 
 # ------------------------------------------------------- K1: FPS + 3-NN
