@@ -88,9 +88,12 @@ last line):
    hier [1, 2048] x [1, 131072] and [1, 512] x [1, 2048] at k = 32), in
    approximate mode at the serve shape at recall targets 0.9 and 0.95
    (4096 and 8192 bins; the recall against its exact mode printed and at
-   least the target), with every key four times (ties) and with only k
-   valid keys; each timed as 5, beside its bound and, in exact mode, the
-   exact search as one cuBLAS product and torch.topk (``K12_CASES``);
+   least the target), with every key four times (ties), with only k
+   valid keys, and at the edges of its launch plan (Nq = 1, 7, 2047; two
+   batch rows with their own valid masks, exact and over 4096 bins; the
+   sampled keys all far or all near at k = 32; k = 1024); each timed as
+   5, beside its bound and, in exact mode, the exact search as one cuBLAS
+   product and torch.topk (``K12_CASES``);
 12e. the interactive evaluator, tiny: ``evaluate_scene`` with the fp32
    model of 3 on the CPU (plain versions) and on the card, one synthetic
    scene of 1500 points padded to 2048, 7 instances in chunks of 2 (the
@@ -662,7 +665,13 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
 # 100,000 valid keys in the 131072 bucket; the train batch; hier's two
 # levels), its approximate mode at the serve shape at recall targets 0.9
 # and 0.95 (``approx_bins``: 4096 and 8192 bins), every key four times
-# (ties) and a row of only k valid keys.
+# (ties), a row of only k valid keys, and the edges of its launch plan
+# (``ops/knn.py::k12_plan``): query counts that leave a block's last group
+# partial (1, 7, 2047), two batch rows with their own valid masks, the
+# sampled keys (every plan stride-th) all far ("sample_high": the buffers
+# fill and are cut again and again) or all near ("sample_low": too few
+# keys below the bound, a second scan) at k = 32, and k = 1024 (2048-key
+# buffers).
 SERVE_KNN = dict(B=1, Nq=2048, Nk=131072)
 K12_CASES = (
     dict(SERVE_KNN, k=256, valid=True, bins=None),
@@ -673,6 +682,14 @@ K12_CASES = (
     dict(SERVE_KNN, k=256, valid=True, bins=8192, rt=0.95),
     dict(SERVE_KNN, k=256, valid=False, bins=None, case="ties"),
     dict(B=1, Nq=256, Nk=131072, k=256, valid=True, bins=None, case="few_valid"),
+    dict(B=1, Nq=1, Nk=131072, k=256, valid=True, bins=None),
+    dict(B=1, Nq=7, Nk=131072, k=256, valid=True, bins=None),
+    dict(B=1, Nq=2047, Nk=131072, k=256, valid=True, bins=None),
+    dict(B=2, Nq=2047, Nk=131072, k=32, valid=True, bins=None, case="rows"),
+    dict(B=2, Nq=2047, Nk=131072, k=32, valid=True, bins=4096, case="rows"),
+    dict(B=1, Nq=64, Nk=131072, k=32, valid=False, bins=None, case="sample_high"),
+    dict(B=1, Nq=64, Nk=131072, k=32, valid=False, bins=None, case="sample_low"),
+    dict(B=1, Nq=64, Nk=131072, k=1024, valid=True, bins=None),
 )
 
 
@@ -691,13 +708,22 @@ def knn_case(torch, K, key: dict, g, cloud) -> dict:
     dev = torch.device("cuda")
     B, nq, nk, k, bins = (key[f] for f in ("B", "Nq", "Nk", "k", "bins"))
     keys, valid, real = cloud(B, nk, key["valid"])
+    query = None
     if key.get("case") == "ties":
         real = nk // 4
         keys = keys[:, :real].repeat(1, 4, 1).contiguous()
     elif key.get("case") == "few_valid":
         valid = torch.zeros((B, nk), dtype=torch.bool, device=dev)
         valid[:, torch.randperm(nk, generator=g, device=dev)[:k]] = True
-    query = keys[:, torch.randperm(real, generator=g, device=dev)[:nq]].contiguous()
+    elif key.get("case") == "rows":  # row 1 keeps 60,000 of its 100,000 real points
+        valid = valid.clone()
+        valid[1, torch.randperm(real, generator=g, device=dev)[:40_000]] = False
+    elif key.get("case") in ("sample_high", "sample_low"):
+        sampled = torch.arange(nk, device=dev) % K.k12_plan(B, nq, nk, k, bins)["stride"] == 0
+        keys[:, sampled] *= 50.0 if key["case"] == "sample_high" else 1e-3
+        query = torch.zeros((B, nq, 3), device=dev)
+    if query is None:
+        query = keys[:, torch.randperm(real, generator=g, device=dev)[:nq]].contiguous()
     stats = {}
 
     def equal(got, want):

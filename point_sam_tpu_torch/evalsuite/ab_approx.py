@@ -52,12 +52,16 @@ BASE_KW = dict(knn_method="approx", knn_recall_target=0.9)
 
 @torch.no_grad()
 def geometry_surrogates(scenes, *, num_patches, patch_size, candidates, recall_target=0.9,
-                        device="cpu"):
+                        device=None):
     """Model-free deltas, means over the scenes: the approximate kNN's
     recall of the exact kNN's neighbours (G exact FPS centres x K) at
     ``recall_target``, and the FPS coverage ratio of ``candidates``-point
-    approximate FPS over exact FPS."""
+    approximate FPS over exact FPS. On the card unless ``device`` names
+    another (``ops/_cuda.py::resolve_device``)."""
     from ..ops import batch_index_select, fps, knn
+    from ..ops._cuda import resolve_device
+
+    device = resolve_device(device)
 
     out = {"knn_recall": [], "fps_coverage_ratio": []}
     for xyz in scenes:

@@ -43,10 +43,23 @@ _SELECT_CHUNK_ELEMENTS = 1 << 24
 _INF_BITS = 0x7F800000
 # XLA's lane tiling of the reduced axis for an operand of rank >= 2.
 _TPU_TILING = 128
-# K12's limits (csrc/knn.cu: kMaxK, kMaxBins): k, and the bins that fit
-# the shared memory a block may opt into on an H100.
+# K12's limits (csrc/knn.cu: kMaxK, kMaxBins): k, and the bins whose
+# bitmaps fit beside the candidate buffers.
 K12_MAX_K = 1024
 K12_MAX_BINS = 26624
+# K12's launch plan (``k12_plan``; csrc/knn.cu checks it against its own
+# layout): the shared memory an H100 block may opt into, the (queries a
+# warp, warps) a block may take, most queries first, keys a tile, the
+# largest sample, the sample distances a lane keeps (kTop), the largest
+# candidate buffer (kMaxCap), and the blocks that fill the card's 132 SMs
+# in one wave.
+K12_SMEM_LIMIT = 232_448
+_K12_BLOCKS = ((4, 8), (2, 8), (2, 4), (2, 2), (2, 1))
+_K12_TILE = 1024
+_K12_SAMPLE = 4096
+_K12_TOP = 8
+_K12_MAX_CAP = 2048
+_K12_WAVE = 128
 
 
 def approx_bins(n: int, k: int, recall_target: float) -> tuple[int, int]:
@@ -127,6 +140,83 @@ def _check_select_args(nk: int, k: int, bins: int | None) -> None:
         raise ValueError(f"approximate kNN needs bins >= k, got {bins} bins for k={k}")
 
 
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def k12_smem_bytes(warps: int, qw: int, cap: int, tile: int, sample: int, bins: int) -> int:
+    """Shared memory of a K12 block (csrc/knn.cu ``layout``): the candidate
+    buffers (``cap`` 64-bit keys for each of the block's queries), which
+    first stage the sample (16 + 1 bytes a key); three staged tiles of (x,
+    y, z, k^2) and their valid bits; two raw tiles (fp32 triples, valid bytes,
+    16 bytes each for the misalignment); in approximate mode a bitmap of
+    the bins for each warp; a flag and the queries' candidate counts; the
+    ring's eight mbarriers."""
+    cand = warps * qw * cap * 8
+    return (_align16(max(cand, sample * 17)) + 3 * tile * 16 + _align16(3 * (tile // 32) * 4)
+            + 2 * _align16(tile * 12 + 16) + 2 * _align16(tile + 16)
+            + _align16(warps * ((bins + 31) // 32) * 4) + _align16(4 + warps * qw * 4) + 64)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def k12_plan(B: int, nq: int, nk: int, k: int, bins: int | None = None) -> dict:
+    """K12's launch at (B, Nq, Nk, k, bins), a pure function of them.
+
+    - ``sample`` keys at a ``stride`` (0: none; every key is a candidate
+      from the start, as where Nk <= 1024) bound each query's candidates by
+      the ``rank``-th smallest sample distance: mu + 4 sqrt(mu) + 4, mu the
+      expected number of the ``need`` nearest keys in the sample (k; in
+      approximate mode the keys whose bins fill k of the L, -L ln(1 - k / L)).
+      The sample is at most 4096 and keeps mu <= 80, so rank <= 128 of the
+      256 distances a warp keeps.
+    - ``cap``: the candidates a query holds, a power of two: every key
+      where there is no sample; else >= k + 64 and about the expected count
+      below the bound plus one sigma (a full buffer is cut to k and the scan
+      goes on), at most 2048.
+    - ``tile``: the keys a tile of the ring (1024).
+    - ``warps`` scoring warps of ``qw`` queries each (4 x 8, 2 x 8, 2 x 4,
+      2 x 2, 2 x 1), and two more warps that stage the tiles:
+      the first whose ``smem`` fits 232,448 bytes and still gives 128
+      blocks (a wave of the 132 SMs), else the last that fits; ``grid`` = B
+      * ``groups``, block b * groups + g taking queries [g * queries, (g +
+      1) * queries) of batch row b, those >= Nq idle.
+    """
+    _check_select_args(nk, k, bins)
+    if k > K12_MAX_K or (bins is not None and bins > K12_MAX_BINS):
+        raise ValueError(f"K12 takes k <= {K12_MAX_K} and bins <= {K12_MAX_BINS}, got k={k}, "
+                         f"bins={bins}")
+    L = bins or 0
+    if 0 < L < nk:
+        need = nk if k >= L else min(nk, math.ceil(-L * math.log1p(-k / L)))
+    else:  # exact, or a bin a key
+        need = k
+    sample = stride = rank = 0
+    target = min(_K12_SAMPLE, 80 * nk // need)
+    if nk <= 1024:
+        cap = max(32, _pow2(nk))
+    elif target >= 256:
+        stride = -(-nk // target)
+        sample = -(-nk // stride)
+        mu = need * sample / nk
+        rank = math.ceil(mu + 4.0 * math.sqrt(mu) + 4.0)
+        expect = rank * nk / sample * (1.0 + 1.0 / math.sqrt(rank))
+        cap = min(_K12_MAX_CAP, _pow2(max(k + 64, math.ceil(expect))))
+    else:
+        cap = _K12_MAX_CAP
+    tile = _K12_TILE
+    fits = [(qw, w) for qw, w in _K12_BLOCKS
+            if k12_smem_bytes(w, qw, cap, tile, sample, L) <= K12_SMEM_LIMIT]
+    qw, warps = next((f for f in fits if B * -(-nq // (f[0] * f[1])) >= _K12_WAVE), fits[-1])
+    queries = qw * warps
+    groups = -(-nq // queries)
+    return dict(warps=warps, qw=qw, threads=32 * (warps + 2), queries=queries, groups=groups,
+                cap=cap, tile=tile, sample=sample, stride=stride, rank=rank,
+                smem=k12_smem_bytes(warps, qw, cap, tile, sample, L), grid=B * groups)
+
+
 def knn_select_plain(query: torch.Tensor, key: torch.Tensor, k: int, *,
                      key_valid: torch.Tensor | None = None,
                      bins: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -186,14 +276,25 @@ def knn_select_plain(query: torch.Tensor, key: torch.Tensor, k: int, *,
     return torch.cat(ds, 1), torch.cat(idxs, 1)
 
 
+def _bulk_copyable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where K12's 16-byte bulk copies may read it whole: its base
+    16-byte aligned and its bytes a multiple of 16 (the last tile's copy
+    ends on a 16-byte boundary); else a flat copy padded to one."""
+    if t.data_ptr() % 16 == 0 and t.numel() * t.element_size() % 16 == 0:
+        return t
+    unit = 16 // t.element_size()
+    out = torch.zeros(-(-t.numel() // unit) * unit, dtype=t.dtype, device=t.device)
+    out[:t.numel()] = t.reshape(-1)
+    return out
+
+
 @_cuda.counted
 def knn_select_cuda(query: torch.Tensor, key: torch.Tensor, k: int, *,
                     key_valid: torch.Tensor | None = None,
                     bins: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K12 on the card, one launch; same arguments and outputs as
-    ``knn_select_plain``, bit for bit. Takes k <= 1024 and, in approximate
-    mode, bins <= 26624 (the shared memory an H100 block may opt into);
-    raises on anything else."""
+    """Kernel K12 on the card, one launch at ``k12_plan``'s plan; same
+    arguments and outputs as ``knn_select_plain``, bit for bit. Takes k <=
+    1024 and, in approximate mode, bins <= 26624; raises on anything else."""
     query, key = query.float().contiguous(), key.float().contiguous()
     valid = None if key_valid is None else key_valid.to(torch.uint8).contiguous()
     _cuda.require_cuda(query, key, *(() if valid is None else (valid,)))
@@ -202,15 +303,17 @@ def knn_select_cuda(query: torch.Tensor, key: torch.Tensor, k: int, *,
     if key.shape[0] != B or query.shape[2] != 3 or key.shape[2] != 3:
         raise ValueError(f"K12 takes [B, Nq, 3] queries and [B, Nk, 3] keys, got "
                          f"{tuple(query.shape)} and {tuple(key.shape)}")
-    _check_select_args(nk, k, bins)
-    if k > K12_MAX_K or (bins is not None and bins > K12_MAX_BINS):
-        raise ValueError(f"K12 takes k <= {K12_MAX_K} and bins <= {K12_MAX_BINS}, got k={k}, "
-                         f"bins={bins}")
+    plan = k12_plan(B, nq, nk, k, bins)
+    key = _bulk_copyable(key)
+    valid = None if valid is None else _bulk_copyable(valid)
     d = torch.empty((B, nq, k), dtype=torch.float32, device=query.device)
     idx = torch.empty((B, nq, k), dtype=torch.int32, device=query.device)
     p = _cuda.ptr
-    code = _cuda.library().psam_knn_select(p(query), p(key), p(valid), B, nq, nk, k, bins or 0,
-                                           p(d), p(idx), _cuda.stream())
+    code = _cuda.library().psam_knn_select(
+        p(query), p(key), p(valid), B, nq, nk, k, bins or 0,
+        *(plan[f] for f in ("warps", "qw", "cap", "tile", "sample", "stride", "rank", "smem",
+                            "grid")),
+        p(d), p(idx), _cuda.stream())
     _cuda.check("psam_knn_select", code)
     _cuda.count_launch(knn_select_cuda, B=B, Nq=nq, Nk=nk, k=k, valid=valid is not None,
                        bins=bins)

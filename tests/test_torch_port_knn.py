@@ -16,6 +16,11 @@ K12 (csrc/knn.cu), against the JAX package and independent oracles.
   (K9's gate holds) and 0.95 (K1, then K12's approximate mode) against
   JAX's, and K9's gate against JAX's at both targets.
 - a tiny ``ab_approx`` run (2 scenes of 240 points, 3 overfit steps).
+- K12's launch plan (``k12_plan``) at every shape the paths and the card
+  cases launch, and at Nq = 1, 7, 2047: shared memory within 232,448
+  bytes and equal to ``k12_smem_bytes``, every (batch, query) row taken by
+  exactly one block slot, a partial last group idle past Nq, the sample
+  and the buffer consistent.
 - ``cuda``-marked: K12 against ``knn_select_plain`` bit for bit (skipped
   without a card). This module imports JAX only inside its CPU tests, so
   on a machine with a card and no JAX it runs alone:
@@ -309,6 +314,85 @@ def test_ab_approx_tiny_run(monkeypatch):
     assert 0.0 < got["knn_recall"] <= 1.0
 
 
+def test_geometry_surrogates_default_to_the_card(monkeypatch):
+    """``geometry_surrogates`` resolves its device as every entry point
+    does: the card unless another is named, and no silent CPU fallback (no
+    card here: it raises); with ``device="cpu"`` its FPS coverage equals
+    JAX's on the same scenes."""
+    AB = importlib.import_module("point_sam_tpu_torch.evalsuite.ab_approx")
+    JAB = importlib.import_module("point_sam_tpu.evalsuite.ab_approx")
+    scenes = [s[0] for s in AB.make_scenes(1, 240)]
+    kw = dict(num_patches=32, patch_size=8, candidates=128)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AB.geometry_surrogates(scenes, **kw)
+    got = AB.geometry_surrogates(scenes, device="cpu", **kw)
+    want = JAB.geometry_surrogates(scenes, **kw)
+    assert got["fps_coverage_ratio"] == want["fps_coverage_ratio"]
+    assert 0.0 < got["knn_recall"] <= 1.0
+
+
+# ------------------------------------------------------------ K12 plan
+# (B, Nq, Nk, k, bins): the paths' launches (serve / eval, hier and
+# hier4096 at both levels, train, hier-train, eval-approx95, K9's fallback
+# at rt 0.9), the card cases below, and ragged query counts.
+PLAN_SHAPES = [
+    (1, 2048, 131072, 256, None), (1, 2048, 131072, 32, None), (1, 512, 2048, 32, None),
+    (1, 4096, 131072, 32, None), (1, 512, 4096, 32, None), (2, 1024, 10000, 256, None),
+    (2, 2048, 10000, 32, None), (2, 512, 2048, 32, None), (1, 2048, 131072, 256, 8192),
+    (1, 2048, 131072, 256, 4096), (1, 2048, 131072, 256, 26624), (1, 64, 2048, 32, None),
+    (1, 64, 10000, 256, None), (1, 64, 131072, 256, None), (2, 64, 20000, 1024, None),
+    (1, 64, 131072, 1024, None), (1, 64, 131072, 256, 1024), (1, 64, 10000, 64, None),
+    (1, 256, 131072, 256, None), (1, 1, 131072, 256, None), (1, 7, 131072, 256, None),
+    (1, 2047, 131072, 256, None), (2, 7, 10000, 32, None), (2, 2047, 131072, 32, 4096),
+    (1, 12, 700, 16, 256), (2, 12, 5000, 64, 1280), (1, 12, 700, 8, 1024), (1, 3, 8, 8, None),
+]
+
+
+@pytest.mark.parametrize("B,nq,nk,k,bins", PLAN_SHAPES)
+def test_k12_plan_fits_and_covers(B, nq, nk, k, bins):
+    plan = K.k12_plan(B, nq, nk, k, bins)
+    w, qw, qpb, cap = plan["warps"], plan["qw"], plan["queries"], plan["cap"]
+    assert w in (1, 2, 4, 8) and qw in (2, 4) and plan["threads"] == 32 * (w + 2)
+    assert qpb == qw * w
+    assert plan["smem"] == K.k12_smem_bytes(w, qw, cap, plan["tile"], plan["sample"], bins or 0)
+    assert plan["smem"] <= K.K12_SMEM_LIMIT == 232_448
+    # Block blk takes batch row blk // groups, queries (blk % groups) * qpb + [0, qpb).
+    groups = plan["groups"]
+    assert groups == -(-nq // qpb) and plan["grid"] == B * groups
+    blk = np.arange(plan["grid"])[:, None]
+    b, q = blk // groups, (blk % groups) * qpb + np.arange(qpb)[None, :]
+    live = q < nq
+    rows = (b * nq + q)[live]
+    np.testing.assert_array_equal(np.sort(rows), np.arange(B * nq))  # each row once
+    assert (~live).sum() == B * (groups * qpb - nq)  # a partial last group idles past Nq
+    assert live[:, 0].all()  # no block without a query
+    # The tile: the staging warps convert 4 keys a lane at once; a scoring
+    # lane takes two keys a step, one hit bit each for every query.
+    assert plan["tile"] == 1024
+    # The buffer: a power of two holding k; where keys can overflow it, room
+    # for a step's 64 appends after a cut to k.
+    assert cap & (cap - 1) == 0 and k <= cap <= 2048
+    if nk > cap:
+        assert cap >= k + 64
+    S, st, r = plan["sample"], plan["stride"], plan["rank"]
+    if S:
+        assert (S - 1) * st < nk <= S * st and 1 <= r <= 128 and r <= S
+        assert nk > 1024
+    else:
+        assert st == r == 0
+    assert K.k12_plan(B, nq, nk, k, bins) == plan  # a pure function of its arguments
+
+
+def test_k12_plan_raises_outside_k12():
+    with pytest.raises(ValueError, match="k <= 1024"):
+        K.k12_plan(1, 4, 4096, 1025)
+    with pytest.raises(ValueError, match="bins"):
+        K.k12_plan(1, 4, 40_000, 8, 32_768)
+    with pytest.raises(ValueError, match="bins >= k"):
+        K.k12_plan(1, 4, 4096, 64, 32)
+
+
 # ----------------------------------------------------------------- K12
 @pytest.fixture
 def cuda():
@@ -322,8 +406,8 @@ def k12_inputs(case):
     rng = np.random.default_rng(11)
     B, nq, nk, k, bins = 1, 64, 10_000, 256, None
     valid = None
-    if case == "sort-all":  # n <= 2048: sorted whole
-        nk, k = 2048, 32
+    if case == "sort-all":  # Nk <= 1024: every key a candidate, no sample
+        nk, k = 1000, 32
     elif case == "valid":  # the serve cloud's padding: the tail invalid
         nk = 131_072
         valid = np.zeros((1, nk), bool)
@@ -336,24 +420,35 @@ def k12_inputs(case):
     elif case == "few-valid":  # all but k keys invalid
         valid = np.zeros((1, nk), bool)
         valid[:, rng.choice(nk, k, replace=False)] = True
-    elif case in ("sample-high", "sample-low"):
-        # The sampled keys (i % 64 == 0 at 131072) all far ("high": the
-        # bound takes almost every key) or all near ("low": too few): the
-        # radix select decides.
-        nk = 131_072
+    elif case.startswith(("sample-high", "sample-low")):
+        # The sampled keys (every k12_plan stride-th at 131072) all far
+        # ("high": the bound takes almost every key, the buffers fill and
+        # are cut again and again) or all near ("low": fewer than k keys
+        # below the bound, so the block scans again with every key).
+        nk, k = 131_072, int(case.rsplit("k", 1)[1]) if "-k" in case else 256
         key = cloud(rng, 1, nk)
-        far = np.arange(nk) % 64 == 0
-        key[0, far] = key[0, far] * (50.0 if case == "sample-high" else 1e-3)
+        far = np.arange(nk) % K.k12_plan(1, nq, nk, k)["stride"] == 0
+        key[0, far] = key[0, far] * (50.0 if "high" in case else 1e-3)
         return t(np.zeros((1, nq, 3), np.float32)), t(key), k, None, None
     elif case.startswith("bins"):  # approximate mode, L <= 2048 and above
         nk, bins = 131_072, int(case[4:])
+    elif case.startswith("nq"):  # a partial last group of queries
+        nq, nk = int(case[2:]), 131_072
+    elif case == "rows":  # two batch rows, each its own valid mask
+        B, nk, k = 2, 131_072, 32
+        valid = rng.random((B, nk)) < np.array([[0.76], [0.3]])
+    elif case == "k1024":  # the largest k: 2048-key buffers, sorted through shared memory
+        nk, k = 131_072, 1024
+        valid = np.zeros((1, nk), bool)
+        valid[:, :100_000] = True
     key = cloud(rng, B, nk)
     query = key[:, rng.choice(100_000 if case == "valid" else nk, nq, replace=False)]
     return t(query), t(key), k, t(valid), bins
 
 
 K12_CASES = ["sort-all", "train", "valid", "batch-k1024", "ties", "few-valid", "sample-high",
-             "sample-low", "bins1024", "bins4096", "bins8192"]
+             "sample-low", "bins1024", "bins4096", "bins8192", "nq1", "nq7", "nq2047", "rows",
+             "sample-high-k32", "sample-low-k32", "k1024"]
 
 
 @pytest.mark.cuda
