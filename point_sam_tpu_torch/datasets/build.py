@@ -117,6 +117,13 @@ class BatchIterator:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def skip_epoch(self):
+        """Pass over one epoch without loading it: every later epoch's order
+        and per-example seeds are as if it had been iterated."""
+        self._epoch += 1
+        if self.shuffle:
+            self.rng.shuffle(np.arange(len(self.dataset)))
+
     def _fetch(self, i: int, epoch: int):
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch, int(i)]))
         return self.dataset.get(int(i), rng=rng)

@@ -277,27 +277,31 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--config", default="large")
     parser.add_argument(
         "--ckpt_path", default=None,
-        help="a torch state dict (torch.save) with the reference's key names, "
-        "loaded strictly; JAX's orbax directories and safetensors files are "
-        "not read. Without it the weights are random, seeded by 0.")
+        help="the weights: a reference .safetensors checkpoint (the released "
+        "format; loaded non-strict through the key triage, warning on "
+        "unmapped and unfilled keys), a trainer checkpoint directory (its "
+        "latest checkpoint) or a torch.save state dict with the reference's "
+        "key names (both loaded strictly). Without it the weights are "
+        "random, seeded by 0.")
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
     parser.add_argument("overrides", nargs="*", default=[])
 
 
 def load_model(args):
-    """(model, device) from ``add_model_args``' arguments: ``build_model``
-    of the config's model (bf16 compute on the card, fp32 on the CPU),
-    then the checkpoint if one is named."""
+    """(model, device, report) from ``add_model_args``' arguments:
+    ``build_model`` of the config's model (bf16 compute on the card, fp32
+    on the CPU), then the checkpoint if one is named
+    (``utils.checkpoint.load_weights``, into the fp32 parameters, before
+    any Predictor casts them; ``report`` is its report, else None)."""
+    from ..utils import checkpoint
     from ..utils.config import build_model, load_config
 
     device = resolve_device(args.device)
     cfg = load_config(args.config, args.overrides)
     model = build_model(cfg.model, device=device,
                         generator=torch.Generator(device).manual_seed(0))
-    if args.ckpt_path:
-        state = torch.load(args.ckpt_path, map_location=device, weights_only=True)
-        model.load_state_dict(state, strict=True)
-    return model, device
+    report = checkpoint.load_weights(args.ckpt_path, model) if args.ckpt_path else None
+    return model, device, report
 
 
 def main(argv=None):
@@ -336,7 +340,7 @@ def main(argv=None):
         help="instances decoded at once (the last chunk padded)")
     args = parser.parse_args(argv)
 
-    model, device = load_model(args)
+    model, device, _ = load_model(args)
     category_from_name = (
         (lambda n: n.split("_")[0])
         if args.category_from == "filename-prefix" else None

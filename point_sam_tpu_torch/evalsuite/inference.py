@@ -8,7 +8,7 @@ masks, print per-click IoU. Input is a .ply (+ ``.masks.npy``) or an .npz
 with coords/features/gt_masks arrays.
 
     python -m point_sam_tpu_torch.evalsuite.inference --input scene.npz \\
-        [--ckpt_path model.pt] [--device cpu]
+        [--ckpt_path model.safetensors] [--device cpu]
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def main(argv=None):
     parser.add_argument("--num_clicks", type=int, default=3)
     args = parser.parse_args(argv)
 
-    model, device = load_model(args)
+    model, device, _ = load_model(args)
     if args.input.endswith(".npz"):
         data = np.load(args.input)
         xyz, rgb, gt = data["coords"], data["features"], data["gt_masks"]

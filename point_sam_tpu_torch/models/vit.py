@@ -7,7 +7,10 @@ rotary embedding, no mask, no cls token; pc_encoder.py:138-142):
   bias-free k (EVA02), or one fused qkv projection with separate q and v
   biases (EVA-giant, timm's ``qkv.weight`` / ``q_bias`` / ``v_bias``);
 - pre-norm MLP: SwiGLU with an inner LayerNorm, sub-LN (EVA02), or a plain
-  GELU MLP (EVA-giant).
+  GELU MLP (EVA-giant);
+- optionally timm's LayerNorm on the attention output before ``proj``
+  (``attn_inner_norm``, timm's ``scale_attn_inner``; key ``attn.norm``),
+  off in every preset.
 
 Attention runs through ``ops.mha_flat``: kernel K3 at EVA02's head size 64,
 kernel K5 at EVA-giant's 88. The blocks are one ``nn.ModuleList`` named
@@ -40,6 +43,7 @@ class ViTConfig:
     mlp_hidden_dim: int
     swiglu: bool = True  # SwiGLU MLP with its sub-LN (EVA02) vs plain GELU MLP (EVA-giant)
     qkv_fused: bool = False  # fused qkv projection (EVA-giant)
+    attn_inner_norm: bool = False  # LayerNorm on the attention output before proj
 
     @property
     def head_dim(self) -> int:
@@ -79,6 +83,7 @@ class EvaAttention(nn.Module):
             self.q_proj = Dense(D, D, **kw)
             self.k_proj = Dense(D, D, bias=False, **kw)
             self.v_proj = Dense(D, D, **kw)
+        self.norm = LayerNorm(D, dtype=dtype, device=device) if cfg.attn_inner_norm else None
         self.proj = Dense(D, D, **kw)
         self.num_heads = cfg.num_heads
 
@@ -90,7 +95,10 @@ class EvaAttention(nn.Module):
             q, k, v = qkv.chunk(3, dim=-1)
         else:
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        return self.proj(mha_flat(q, k, v, self.num_heads))
+        out = mha_flat(q, k, v, self.num_heads)
+        if self.norm is not None:
+            out = self.norm(out)
+        return self.proj(out)
 
 
 class SwiGLU(nn.Module):

@@ -24,7 +24,7 @@ three.js frontend can drive it unmodified:
 
     python -m point_sam_tpu_torch.serving.make_assets --out demo_models
     python -m point_sam_tpu_torch.serving.server --model_dir demo_models \
-        [--ckpt_path model.pt] [--device cpu]
+        [--ckpt_path model.safetensors] [--device cpu]
 """
 
 from __future__ import annotations
@@ -242,7 +242,7 @@ def main(argv=None):
     parser.add_argument("--static_dir", default="bundled")
     args = parser.parse_args(argv)
 
-    model, device = load_model(args)
+    model, device, _ = load_model(args)
     httpd, _ = build_server(
         model, device=device, host=args.host, port=args.port,
         model_dir=args.model_dir, output_dir=args.output_dir,

@@ -5,29 +5,36 @@ point_sam_tpu/train/trainer.py, one device):
         train_dataset.dataset.source=synthetic val_freq=0 max_steps=N
     python -m point_sam_tpu_torch.train.trainer --config tiny --device cpu
 
-All three models train: kNN (``variant: knn``), voronoi (``--config
-voronoi_large`` or ``voronoi_giant``) and hier (a recipe such as
-``--config large`` with configs/model/hier.yaml as its whole ``model``
-value). A whole value is given in JSON, which the overrides read as YAML;
-so the synthetic set takes the place of the voronoi recipes' ``mixture``
-of hub datasets (README.md has the commands).
+All the recipes train: kNN (``variant: knn``: ``large``, ``base``,
+``giant``, and ``large`` with configs/model/enc_with_radius.yaml as its
+whole ``model`` value), voronoi (``voronoi_large``, ``voronoi_giant``) and
+hier (``large`` with configs/model/hier.yaml as its ``model``). A whole
+value is given in JSON, which the overrides read as YAML; so the synthetic
+set takes the place of a recipe's ``mixture`` of hub datasets (README.md
+has the commands).
 
-config -> model -> data -> the train loop of ``parallel.train_step``
+config -> model -> pretrained weights (``pretrained_ckpt_path``: a
+reference ``.safetensors`` checkpoint or a Uni3D encoder ``.pt``,
+``load_pretrained``) -> data -> the train loop of ``parallel.train_step``
 (simulated-click forward, criterion, backward, clip-by-value, AdamW,
-warmup-multistep schedule), keep-1 checkpoints with resume, and IoU-per-click
-validation. It runs on ``cuda`` unless ``--device`` names another device,
-and raises without a card rather than falling back to the CPU. TF32 stays
-off for matmuls (set when the package is imported). Model parameters are
-fp32; the compute dtype is bf16 on a CUDA device and fp32 elsewhere.
+warmup-multistep schedule), keep-1 checkpoints with resume, IoU-per-click
+validation and, every ``vis_freq`` epochs, the visualisation dump
+(``dump_visualizations``). Metrics go out under the reference's scalar
+names (``train/<metric>`` and ``train/lr`` every ``log_freq`` steps,
+``val/<metric>`` after validation) to wandb with ``log_with: wandb`` where
+it starts, else to stdout. It runs on ``cuda`` unless ``--device`` names
+another device, and raises without a card rather than falling back to the
+CPU. TF32 stays off for matmuls (set when the package is imported). Model
+parameters are fp32; the compute dtype is bf16 on a CUDA device and fp32
+elsewhere.
 
-Not ported yet (ROADMAP.md): pretrained initialisation
-(``pretrained_ckpt_path``), wandb logging and the visualisation dump,
-multi-process / FSDP / TP training.
+Not ported yet (ROADMAP.md): multi-process / FSDP / TP training.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import statistics
 import time
 from collections import defaultdict
@@ -42,6 +49,17 @@ from ..ops._cuda import resolve_device
 
 def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+def val_iterator(cfg, seed: int):
+    """The validation batches of the run config ``cfg`` (not shuffled, the
+    last batch kept)."""
+    from ..datasets.build import BatchIterator, build_dataset
+
+    ds = build_dataset(cfg.val_dataset, seed=seed + 1,
+                       context={"num_samples": cfg.get("num_samples")})
+    return BatchIterator(ds, cfg.val_dataloader.batch_size, shuffle=False, drop_last=False,
+                         seed=seed)
 
 
 def main(argv=None) -> dict:
@@ -69,11 +87,12 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = load_config(args.config, args.overrides)
     seed = cfg.get("seed", 42)
-    if cfg.get("pretrained_ckpt_path"):
-        raise NotImplementedError("pretrained initialisation is not ported yet (ROADMAP.md)")
 
     model = build_model(cfg.model, device=device,
                         generator=torch.Generator(device).manual_seed(seed))
+    if cfg.get("pretrained_ckpt_path"):
+        load_pretrained(cfg.pretrained_ckpt_path, model)
+        print(f"initialized from {cfg.pretrained_ckpt_path}", flush=True)
     print(f"model: {type(model).__name__} ({cfg.model.get('vit')}) on {device}, "
           f"compute {model.dtype}, params "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M", flush=True)
@@ -84,11 +103,11 @@ def main(argv=None) -> dict:
         cfg.train_dataloader.batch_size,
         shuffle=cfg.train_dataloader.get("shuffle", True),
         drop_last=cfg.train_dataloader.get("drop_last", True), seed=seed)
-    val_iter = None
-    if cfg.get("val_freq", 0) > 0:
-        val_iter = BatchIterator(build_dataset(cfg.val_dataset, seed=seed + 1, context=ctx),
-                                 cfg.val_dataloader.batch_size, shuffle=False,
-                                 drop_last=False, seed=seed)
+    # JAX's trainer initialises its model on a batch drawn from the
+    # iterator's first epoch (its trainer.py:122) and so trains from the
+    # second: skipping the first keeps both trainers on the same batches.
+    train_iter.skip_epoch()
+    val_iter = val_iterator(cfg, seed) if cfg.get("val_freq", 0) > 0 else None
 
     sched = warmup_multistep(cfg.lr, cfg.scheduler.milestones,
                              gamma=cfg.scheduler.get("gamma", 0.1),
@@ -100,7 +119,8 @@ def main(argv=None) -> dict:
     crit = partial(criterion, use_soft_iou=loss_cfg.get("use_soft_iou", False))
     accum = cfg.get("gradient_accumulation_steps", 1)
 
-    ckpt = CheckpointManager(Path(cfg.get("project_dir", "./logs/run")) / "checkpoints")
+    project_dir = Path(cfg.get("project_dir", "./logs/run"))
+    ckpt = CheckpointManager(project_dir / "checkpoints")
     start_epoch, global_step = 0, 0
     latest = ckpt.latest_step()
     if latest is not None:
@@ -109,14 +129,30 @@ def main(argv=None) -> dict:
         tx.load_state_dict(state["optimizer"])
         global_step, start_epoch = state["step"], latest
         print(f"resumed from epoch {latest} (global step {global_step})", flush=True)
+
+    wandb_run = None
     if cfg.get("log_with") == "wandb":
-        print("wandb logging is not ported yet; logging to stdout", flush=True)
+        try:
+            import wandb
+
+            wandb_run = wandb.init(project=cfg.get("project_name", "point-sam-tpu"),
+                                   name=cfg.get("run_name"), config=json.loads(json.dumps(cfg)))
+        except Exception as e:  # offline or not installed: the run goes on
+            print(f"wandb unavailable ({e}); logging to stdout", flush=True)
+
+    def log(metrics: dict, step: int, note: str = ""):
+        if wandb_run is not None:
+            wandb_run.log(metrics, step=step)
+        else:
+            line = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
+            print(f"[step {step}] {line}{note}", flush=True)
 
     # Draws the refinement-only click iteration of each step (host side).
     clicks = torch.Generator().manual_seed(seed + 2)
     max_epochs = cfg.get("max_epochs", 10000)
     max_steps = cfg.get("max_steps", 5_000_000)
     log_freq = cfg.get("log_freq", 20)
+    vis_freq = cfg.get("vis_freq", 0)
     history, zero_grads, val_metrics = [], None, {}
     for epoch in range(start_epoch, max_epochs):
         t_epoch = time.perf_counter()
@@ -131,28 +167,94 @@ def main(argv=None) -> dict:
                 zero_grads = [n for n, p in model.named_parameters()
                               if p.grad is None or not bool(p.grad.ne(0).any())]
             global_step += 1
-            if global_step % log_freq == 0 or global_step == 1:
-                line = " ".join(f"{k}={float(v):.4f}" for k, v in sorted(metrics.items()))
-                print(f"[step {global_step}] lr={sched(global_step):.3g} {line} "
-                      f"({history[-1]['ms']:.1f} ms)", flush=True)
+            if global_step % log_freq == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                host["lr"] = float(sched(global_step))
+                log({f"train/{k}": v for k, v in host.items()}, global_step,
+                    f" ({history[-1]['ms']:.1f} ms)")
             if global_step >= max_steps:
                 break
         print(f"epoch {epoch} done in {time.perf_counter() - t_epoch:.1f}s "
               f"(step {global_step})", flush=True)
         if val_iter is not None and (epoch + 1) % cfg.val_freq == 0:
             val_metrics = validate(model, val_iter, device)
-            print("[val] " + " ".join(f"{k}={v:.4f}" for k, v in sorted(val_metrics.items())),
-                  flush=True)
+            log({f"val/{k}": v for k, v in val_metrics.items()}, global_step)
+            if vis_freq and (epoch + 1) % vis_freq == 0:
+                dump_visualizations(model, val_iter, project_dir / "vis" / f"ep{epoch + 1}",
+                                    wandb_run=wandb_run, step=global_step)
         if (epoch + 1) % cfg.get("save_freq", 5) == 0 or global_step >= max_steps:
             ckpt.save(epoch + 1, {"model": model.state_dict(), "optimizer": tx.state_dict(),
                                   "step": global_step})
         if global_step >= max_steps:
             break
+    if wandb_run is not None:
+        wandb_run.finish()
     if len(history) > 1:
         print(f"train step: median {statistics.median(h['ms'] for h in history[1:]):.1f} ms "
               f"over steps 2..{len(history)}", flush=True)
     return dict(model=model, optimizer=tx, step=global_step, history=history,
                 first_step_zero_grads=zero_grads or [], val=val_metrics)
+
+
+def load_pretrained(path, model) -> dict:
+    """Pretrained initialisation (counterpart of JAX ``_load_pretrained``;
+    reference train.py:101-121): a reference ``.safetensors`` checkpoint
+    loaded non-strict through the key triage, or a Uni3D encoder file
+    (``torch.save`` of ``{"module": {"point_encoder.*": ...}}`` or of the
+    bare dict) through ``convert_uni3d``. Returns the load's report."""
+    from ..utils.convert import convert_uni3d, load_torch_safetensors
+
+    if str(path).endswith(".safetensors"):
+        return load_torch_safetensors(path, model, strict=False)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    module = sd.get("module", sd)
+    report = convert_uni3d({"module": module}, model)
+    print(f"uni3d init: mapped {len(module) - len(report['unmapped'])} tensors "
+          f"({len(report['unmapped'])} non-encoder keys ignored)", flush=True)
+    return report
+
+
+@torch.no_grad()
+def dump_visualizations(model, val_iter, out_dir, max_samples: int = 4, wandb_run=None,
+                        step=None) -> None:
+    """Write ``sample{i}_pred.ply`` (the last click's mask blended red) and
+    ``sample{i}_prompts.ply`` (points near the clicks green / red) for the
+    first ``max_samples`` masks of the first validation batch, run through
+    the evaluation clicks where the model lives; when a wandb run is live,
+    also log the same clouds as ``wandb.Object3D`` panels (reference
+    train.py:314-327,360-382). The PLY dump is always written."""
+    from ..utils import ply
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    batch = next(iter(val_iter))
+    model.eval()
+    b = to_device(batch, next(model.parameters()).device)
+    last = model(b["coords"], b["features"], b["gt_masks"], is_eval=True,
+                 generator=torch.Generator().manual_seed(0))[-1]
+    last = {k: v.float().cpu().numpy() for k, v in last.items()
+            if k in ("prompt_coords", "prompt_labels", "prompt_masks")}
+    # fp32 as the JAX package's device arrays hold them.
+    xyz = np.asarray(batch["coords"], np.float32)
+    feats = np.asarray(batch["features"], np.float32)
+    M = batch["gt_masks"].shape[1]
+    panels = {}
+    for i in range(min(max_samples, len(last["prompt_masks"]))):
+        s = i // M
+        rgb = np.clip((feats[s, :, :3] * 0.5 + 0.5) * 255, 0, 255)
+        pred_rgb = ply.mask_colors(xyz[s], last["prompt_masks"][i] > 0, rgb)
+        prompt_rgb = ply.prompt_colors(xyz[s], last["prompt_coords"][i],
+                                       last["prompt_labels"][i] > 0, rgb)
+        ply.save_ply(out_dir / f"sample{i}_pred.ply", xyz[s], pred_rgb)
+        ply.save_ply(out_dir / f"sample{i}_prompts.ply", xyz[s], prompt_rgb)
+        if wandb_run is not None:
+            import wandb
+
+            panels[f"val/sample{i}_pred"] = wandb.Object3D(np.concatenate([xyz[s], pred_rgb], 1))
+            panels[f"val/sample{i}_prompts"] = wandb.Object3D(
+                np.concatenate([xyz[s], prompt_rgb], 1))
+    if panels:
+        wandb_run.log(panels, step=step)
 
 
 @torch.no_grad()

@@ -1,5 +1,7 @@
 """Keep-k training checkpoints with torch.save (the counterpart of the JAX
-trainer's orbax ``CheckpointManager(max_to_keep=1)``).
+trainer's orbax ``CheckpointManager(max_to_keep=1)``), and the one weight
+loader of every entry point, ``load_weights`` (counterpart of JAX's
+``utils/checkpoint.py::load_variables``).
 
 A checkpoint is one file ``<dir>/ckpt_<epoch>.pt`` holding a dict (model,
 optimizer with its schedule count, global step). It is written to a
@@ -43,3 +45,46 @@ class CheckpointManager:
     def restore(self, step: int, map_location=None) -> dict:
         return torch.load(self.dir / f"ckpt_{step}.pt", map_location=map_location,
                           weights_only=True)
+
+
+def load_weights(path, model) -> dict:
+    """Load weights from ``path`` into ``model`` (its parameters keep their
+    dtypes and device). ``path`` is one of:
+
+    - a reference ``.safetensors`` file: loaded non-strict through the key
+      triage (``utils.convert.load_torch_safetensors``), with a warning line
+      for unmapped torch keys and one for unfilled model keys;
+    - a trainer checkpoint directory (``CheckpointManager``): its latest
+      ``ckpt_<epoch>.pt``, the ``"model"`` entry, loaded strictly;
+    - any other file: a ``torch.save`` state dict with the reference's key
+      names, loaded strictly.
+
+    Returns the load's report (``utils.convert.load_reference_state_dict``'s
+    fields; a strict load maps every key).
+    """
+    p = Path(path)
+    if p.is_file() and p.suffix == ".safetensors":
+        from .convert import load_torch_safetensors
+
+        report = load_torch_safetensors(p, model, strict=False)
+        if report["unmapped"]:
+            print(f"warning: {len(report['unmapped'])} unmapped torch keys "
+                  f"(first: {report['unmapped'][:3]})")
+        if report["unfilled"]:
+            print(f"warning: {len(report['unfilled'])} unfilled params "
+                  f"(first: {report['unfilled'][:3]})")
+        return report
+    device = next(model.parameters()).device
+    if p.is_dir():
+        mgr = CheckpointManager(p)
+        step = mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {p}")
+        state = mgr.restore(step, map_location=device)["model"]
+    elif p.is_file():
+        state = torch.load(p, map_location=device, weights_only=True)
+    else:
+        raise FileNotFoundError(path)
+    model.load_state_dict(state, strict=True)
+    return dict(mapped=len(state), unmapped=[], recognized_unused=[], variant_unsupported=[],
+                unfilled=[])

@@ -927,3 +927,73 @@ def test_decoder_tail_launches_k11_where_k4_gate_fails(cuda):
         before[0] + 1, before[1])
     assert_rel(got, UP.interp_upscale_reference(h1, idx, w, params, hyper, cdt=torch.float32),
                1e-4)
+
+
+# The recipes that train from a Uni3D encoder: configs/giant.yaml (EVA-giant,
+# B=8, G=512, K=64), configs/base.yaml (ViT-B: D=768 in 12 heads of 64, B=4,
+# G=512, K=64). (B, G, K, C_in, C_out): the patch embed's PointNet (C_in 6,
+# -> 512) and the mask encoder's (C_in 4, -> 256, B*M masks of 2 a cloud).
+RECIPE_PE_SHAPES = [pytest.param(8, 512, 64, 6, 512, id="giant-embed"),
+                    pytest.param(16, 512, 64, 4, 256, id="giant-mask"),
+                    pytest.param(4, 512, 64, 6, 512, id="base-embed"),
+                    pytest.param(8, 512, 64, 4, 256, id="base-mask")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,G,K,cin,cout", RECIPE_PE_SHAPES)
+def test_k2_k7_at_recipe_shapes(cuda, dtype, B, G, K, cin, cout):
+    """K2, then K7 given its saved max-pools, at K = 64 against their plain
+    versions (K7 on the route its sizes select)."""
+    rng = np.random.default_rng(64)
+    params = to(pe_params(rng, cin, 128, 512, cout), cuda)
+    x = to(rng.standard_normal((B, G * K, cin)).astype(np.float32), cuda, dtype)
+    do = to(rng.standard_normal((B, G, cout)).astype(np.float32), cuda, dtype)
+    kw = dict(num_groups=G, group_size=K, cdt=dtype, act="erf")
+    out, saved = PE.patch_encoder_cuda(x, params, return_argmax=True, **kw)
+    assert_rel(out, PE.patch_encoder_plain(x, params, **kw),
+               1e-4 if dtype == torch.float32 else 2e-2)
+    PE.patch_encoder_bwd_cuda.shapes = {}
+    gdx, gdp = PE.patch_encoder_bwd_cuda(x, params, do, saved=saved, **kw)
+    assert k7_launch_route() == k7_route(K, cin, 128, 512, cout, dtype)
+    wdx, wdp = PE.patch_encoder_bwd_plain(x, params, do, saved=saved, **kw)
+    torch.cuda.synchronize()
+    for g_, w_ in zip((gdx, *gdp), (wdx, *wdp)):
+        if dtype == torch.float32:
+            assert_rel(g_, w_, 1e-4)
+        else:
+            assert_norm(g_, w_, 5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("big", [False, True], ids=["plain", "big"])
+def test_k3_k6_at_vit_b_train_shape(cuda, dtype, tol, big):
+    """ViT-B's attention (configs/base.yaml: B=4, S=512, 12 heads of 64):
+    K3 and K6 against their plain versions; ``big``: large logits."""
+    B, S, H, dh = 4, 512, 12, 64
+    rng = np.random.default_rng(768)
+    q, k, v = (t.swapaxes(1, 2).reshape(B, S, H * dh) for t in qkv_inputs(rng, (B, H, S, dh), big))
+    do = rng.standard_normal((B, S, H * dh)).astype(np.float32)
+    q, k, v, do = (to(t, cuda, dtype) for t in (q, k, v, do))
+    assert A.packs_heads(dh, H)
+    assert_rel(A.mha_cuda(q, k, v, H), A.mha_plain(q, k, v, H), tol)
+    got = A.mha_packed_bwd_cuda(q, k, v, do, H)
+    want = A.mha_packed_bwd_plain(q, k, v, do, H)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == dtype and g_.shape == q.shape
+        assert_rel(g_, w_, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("big", [False, True], ids=["plain", "big"])
+def test_k5_at_knn_giant_train_shape(cuda, dtype, tol, big):
+    """The kNN EVA-giant's attention at configs/giant.yaml's batch: [8, 16,
+    512, 88] (its backward is the plain recompute)."""
+    q, k, v = (to(t, cuda, dtype)
+               for t in qkv_inputs(np.random.default_rng(88), (8, 16, 512, 88), big))
+    got = A.mha_heads_cuda(q, k, v)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_rel(got, A.mha_heads_plain(q, k, v), tol)
