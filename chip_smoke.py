@@ -221,6 +221,29 @@ last line):
    trained one with the same IoUs; then as 5 for every kernel of the run (path ``learn``:
    K1, K2 and K7 at K = 8, K5 at 4 heads of 32, K11, which the tiny
    decoder takes because K4's gate wants G % 128 == 0, and K12);
+17d. multi-process training at world size 1 over NCCL, in one rank
+   spawned by ``torch.multiprocessing`` (a failed rank fails the run):
+   the kNN EVA-giant of 17r and the ViT-L recipe of 14 (one epoch of 3
+   steps), each from a weights file of its whole model (its fp32 state
+   dict, ``pretrained_ckpt_path``) at the recipe's whole rate from the
+   first step (``FULL_RATE``: each step moves every weight); each first
+   on one device, then the giant through the trainer's FSDP path
+   (``param_sharding=fsdp``, a ``distributed:`` section) and the ViT-L
+   through the DDP path, launched as torchrun launches (RANK, WORLD_SIZE,
+   MASTER_ADDR, MASTER_PORT, LOCAL_RANK), with its checkpoint (gathered to
+   rank 0, the one-process layout); each world-1 run's losses and trained
+   parameters held to its one-device run's within ``DIST_ATOL`` (0: bit
+   for bit), its launches a step (K1-K4, K6, K7, K12 for the ViT-L; K1,
+   K2, K4, K5, K7, K12 for the giant) and its step ms and peak memory
+   printed; then ``sharded_knn`` at the serve shape (2048 queries, 100,000
+   keys in the 131072 bucket, k = 256) equal to ``ops.knn`` bit for bit,
+   with one K12 launch, both timed;
+17g. two ranks of a gloo group on the one card (NCCL takes one rank a
+   card): a DDP train step of the tiny model of 3 in fp32 at a rate of
+   1e-4 over each rank's half of 4 clouds, held to one process's step on
+   all 4: the loss within 2e-5, every all-reduced gradient within 1e-4 of
+   its largest value + 1e-7 (5e-3 for the mask prompt's PointNets), the
+   CPU tests' bounds;
 16. profiles under torch.profiler (device time by stage; K7 by kernel:
    pass C, pass D, the reduction): one ViT-L train step, timed on one batch
    before and after that profiler session, one train step of each voronoi
@@ -1942,17 +1965,22 @@ def train_run(torch, trainer, build_model, load_config, counters, config, overri
     return shapes, result, cfg
 
 
+# Phase 14's run: overrides; launches a step at least and kernels that
+# must not launch (also phase 17d's ViT-L runs).
+VIT_L_TRAIN = ["train_dataset.dataset.source=synthetic", "train_dataset.dataset.num_scenes=16"]
+VIT_L_MINIMUM = {"K1": 1, "K2": 5, "K3": 24, "K4": 5, "K6": 24, "K7": 5, "K12": 1}
+VIT_L_ABSENT = ("K5", "K8", "K9", "K10")
+VIT_L_LABEL = ("ViT-L (configs/large.yaml, synthetic): B=2, N=10000, M=2, G=1024, K=256, 5 click "
+               "iterations, bf16 compute")
+
+
 def train_vit_l(torch, trainer, build_model, load_config, counters, steps=5):
     """Phase 14: the training path, the ViT-L recipe through trainer.main on
     synthetic data (``train_run``). Returns each kernel's launches by shape
     over the run, and the step to profile."""
-    overrides = ["train_dataset.dataset.source=synthetic", "train_dataset.dataset.num_scenes=16"]
     shapes, result, cfg = train_run(
-        torch, trainer, build_model, load_config, counters, "large", overrides,
-        {"K1": 1, "K2": 5, "K3": 24, "K4": 5, "K6": 24, "K7": 5, "K12": 1},
-        ("K5", "K8", "K9", "K10"),
-        "ViT-L (configs/large.yaml, synthetic): B=2, N=10000, M=2, G=1024, K=256, 5 click "
-        "iterations, bf16 compute", steps)
+        torch, trainer, build_model, load_config, counters, "large", VIT_L_TRAIN,
+        VIT_L_MINIMUM, VIT_L_ABSENT, VIT_L_LABEL, steps)
     return shapes, lambda: profile_step(torch, result, cfg, cfg.get("seed", 42), counters)
 
 
@@ -2253,6 +2281,388 @@ def train_recipes(torch, trainer, build_model, load_config, counters, steps=3) -
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return shapes
+
+
+# Phase 17d: multi-process training and the point-sharded kNN at world size
+# 1 over NCCL, in a rank spawned by torch.multiprocessing (``dist_rank``).
+# The kNN EVA-giant's (config, launches a step at least, kernels that must
+# not launch) are phase 17r's.
+GIANT_MINIMUM = {"K1": 1, "K2": 10, "K4": 10, "K5": 40, "K7": 10, "K12": 1}
+GIANT_ABSENT = ("K3", "K6", "K8", "K9", "K10", "K11")
+# 17d's runs take the recipe's whole rate (3e-4) from the first step, not
+# its warm-up's 3e-7, so that each step moves every weight.
+FULL_RATE = "scheduler.warmup_factor=1"
+# Phase 14's ViT-L recipe cut to one epoch of 3 steps.
+DIST_VIT_L = ["train_dataset.dataset.source=synthetic", "train_dataset.dataset.num_scenes=6"]
+# A world-1 run against its one-device run from the same weights file:
+# the largest difference of a loss and of a post-step parameter. The runs
+# were found bit-equal.
+DIST_ATOL = 0.0
+
+
+def kernel_counters() -> tuple[list, dict]:
+    """The kernel modules (fps, patch_encoder_pallas, attention,
+    upscale_pallas, interp_pallas, knn) and each kernel's counted wrapper."""
+    import importlib
+
+    mods = [importlib.import_module(f"point_sam_tpu_torch.ops.{m}")
+            for m in ("fps", "patch_encoder_pallas", "attention", "upscale_pallas",
+                      "interp_pallas", "knn")]
+    F, PE, A, UP, IW, K = mods
+    counters = {"K1": F.fps_interp_cuda, "K2": PE.patch_encoder_cuda, "K3": A.mha_cuda,
+                "K4": UP.interp_upscale_cuda, "K5": A.mha_heads_cuda,
+                "K6": A.mha_packed_bwd_cuda, "K7": PE.patch_encoder_bwd_cuda,
+                "K8": F.fps_cuda, "K9": F.fps_interp_knn_cuda, "K10": IW.interp_weights_cuda,
+                "K11": UP.upscale_hyper_cuda, "K12": K.knn_select_cuda}
+    return mods, counters
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for sock in socks:
+        sock.bind(("localhost", 0))
+    ports = [sock.getsockname()[1] for sock in socks]
+    for sock in socks:
+        sock.close()
+    return ports
+
+
+def host_params(model) -> dict:
+    """Every parameter of a world-1 run's ``model`` (a DDP wrapper
+    unwrapped; an FSDP parameter's one shard, which is the whole of it) in
+    fp32 on the host, by name. The run's group is gone by then, so nothing
+    is gathered."""
+    from torch.distributed.tensor import DTensor
+    from torch.nn.parallel import DistributedDataParallel
+
+    net = model.module if isinstance(model, DistributedDataParallel) else model
+    out = {}
+    for n, p in net.named_parameters():
+        t = p.detach()
+        if isinstance(t, DTensor):
+            t = t.to_local()
+            assert t.shape == p.shape, (n, tuple(t.shape), tuple(p.shape))
+        out[n] = t.float().cpu()
+    return out
+
+
+def measured_run(torch, trainer, counters, args) -> tuple[dict, dict]:
+    """``trainer.main(args)`` with the launches read around it (this rank's
+    counts): losses, the median step of steps 2 on, peak memory, launches
+    a step, the first step's zero grads; and the trained parameters
+    (``host_params``)."""
+    import gc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    r = trainer.main(args)
+    torch.cuda.synchronize()
+    hist = r["history"]
+    out = dict(losses=[h["loss"] for h in hist], steps=r["step"],
+               step_ms=statistics.median(h["ms"] for h in hist[1:]), first_ms=hist[0]["ms"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={k: fn.launches / len(hist) for k, fn in counters.items()},
+               zero_grads=r["first_step_zero_grads"])
+    params = host_params(r["model"])
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, params
+
+
+def compare_runs(got: dict, want: dict, start: dict) -> dict:
+    """A run's trained parameters ``got`` against its one-device run's
+    ``want``, both from the weights ``start``: the largest difference, the
+    largest distance ``want`` moved from ``start``, and the parameters
+    that did not move."""
+    assert got.keys() == want.keys(), sorted(got.keys() ^ want.keys())[:5]
+    moved = {n: float((w - start[n].float()).abs().max()) for n, w in want.items()}
+    return dict(param_diff=max(float((got[n] - w).abs().max()) for n, w in want.items()),
+                max_move=max(moved.values()), unmoved=[n for n, m in moved.items() if m == 0])
+
+
+def dist_rank(rank: int, world: int, ports: list, out: str, giant_file: str,
+              vit_file: str) -> None:
+    """Phase 17d's rank (world size 1, NCCL; spawned, so at module level):
+    (1) the kNN EVA-giant from the weights file ``giant_file`` on one
+    device, then through the trainer's FSDP path (``param_sharding=fsdp``,
+    a ``distributed:`` section); (2) the ViT-L recipe from ``vit_file`` on
+    one device, then through the DDP path, launched as torchrun launches
+    (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK), writing its
+    checkpoint (``gather_train_state``); each at the recipe's whole rate
+    (``FULL_RATE``), the trained parameters compared (``compare_runs``);
+    (3) ``sharded_knn`` at the serve shape against ``ops.knn``. Writes the
+    results as JSON to ``out``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from point_sam_tpu_torch.parallel import initialize, shutdown, sharded_knn
+    from point_sam_tpu_torch.train import trainer
+    from point_sam_tpu_torch.utils.config import load_config
+    from point_sam_tpu_torch.utils.safetensors_io import load_file
+
+    mods, counters = kernel_counters()
+    run_dir = ROOT / "build" / "chip_smoke_dist"
+    res = {}
+    giant = ["--config", "giant", *voronoi_overrides(load_config, "giant", 3), FULL_RATE,
+             f"pretrained_ckpt_path={giant_file}", "val_freq=0", "log_freq=1", "max_epochs=1",
+             "max_steps=1000000", "save_freq=1000000"]
+    res["giant-one"], one = measured_run(torch, trainer, counters, [
+        *giant, f"project_dir={run_dir / 'giant-one'}"])
+    section = json.dumps({"coordinator_address": f"localhost:{ports[0]}",
+                          "num_processes": world, "process_id": rank})
+    res["fsdp-giant-train"], got = measured_run(torch, trainer, counters, [
+        *giant, "param_sharding=fsdp", f"distributed={section}",
+        f"project_dir={run_dir / 'fsdp'}"])
+    res["fsdp-giant-train"].update(compare_runs(got, one, load_file(giant_file)))
+    del one, got
+
+    vit = ["--config", "large", *DIST_VIT_L, FULL_RATE, f"pretrained_ckpt_path={vit_file}",
+           "val_freq=0", "log_freq=1", "max_epochs=1"]
+    res["vit-one"], one = measured_run(torch, trainer, counters, [
+        *vit, "max_steps=1000000", "save_freq=1000000", f"project_dir={run_dir / 'vit-one'}"])
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(ports[1]))
+    res["ddp-train"], got = measured_run(torch, trainer, counters, [
+        *vit, "max_steps=3", f"project_dir={run_dir / 'ddp'}"])
+    res["ddp-train"].update(compare_runs(got, one, load_file(vit_file)))
+    del one, got
+    ckpts = sorted((run_dir / "ddp" / "checkpoints").glob("ckpt_*.pt"))
+    res["ddp-train"]["checkpoint"] = [f.name for f in ckpts]
+    state = torch.load(ckpts[-1], map_location="cpu", weights_only=True) if ckpts else {}
+    res["ddp-train"]["checkpoint_keys"] = sorted(state)
+    res["ddp-train"]["checkpoint_count"] = state.get("optimizer", {}).get("count")
+    del state
+    shutil.rmtree(run_dir, ignore_errors=True)
+    for v in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(v)
+
+    # (3) The serve shape: 2048 queries of a 100,000-point cloud, keys padded
+    # to the 131072 bucket, k = 256.
+    initialize(f"tcp://localhost:{ports[2]}", world, rank)
+    rng = np.random.default_rng(0)
+    xyz, _ = synthetic_cloud(rng, N_FLAGSHIP)
+    keys = np.zeros((1, 131072, 3), np.float32)
+    keys[0, :N_FLAGSHIP] = xyz
+    valid = np.zeros((1, 131072), bool)
+    valid[0, :N_FLAGSHIP] = True
+    q = torch.from_numpy(xyz[rng.choice(N_FLAGSHIP, 2048, replace=False)][None]).cuda()
+    keys, valid = torch.from_numpy(keys).cuda(), torch.from_numpy(valid).cuda()
+    K = mods[5]
+    reset(counters)
+    d, i = sharded_knn(q, keys, 256, key_valid=valid)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    d0, i0 = K.knn(q, keys, 256, key_valid=valid)
+    res["sharded-knn"] = dict(
+        launches=launches, equal=bool(torch.equal(d, d0) and torch.equal(i, i0)),
+        ms=time_ms(torch, lambda: sharded_knn(q, keys, 256, key_valid=valid)),
+        knn_ms=time_ms(torch, lambda: K.knn(q, keys, 256, key_valid=valid)))
+    shutdown()
+    Path(out).write_text(json.dumps(res))
+
+
+def grad_bound(name: str, want) -> float:
+    """The gradient bound of the CPU tests of the train step: 1e-4 of the
+    tensor's largest gradient + 1e-7; 5e-3 for the mask prompt's PointNets
+    (max-pool near-ties on the previous logits)."""
+    rel = 5e-3 if name.startswith("mask_encoder.patch_encoder") else 1e-4
+    return rel * float(want.abs().max()) + 1e-7
+
+
+def dist_gloo_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 17g's rank: two ranks of a gloo group on the one card
+    (``cuda:0``; NCCL takes one rank a card), a DDP train step of the tiny
+    model of phase 3 in fp32 at a rate of 1e-4 over each rank's half of a
+    batch of 4 clouds. Rank 0 also steps two plain copies in one process:
+    one on the ranks' two halves one after the other (each at a rank's
+    shape, rows and click draws; the gradients averaged, then the step),
+    one on the whole batch. It writes, as JSON to ``out``: the losses, the
+    largest gradient and trained-parameter differences of the DDP step
+    against the halves, and each gradient's difference from the whole
+    batch's over its bound (``grad_bound``; DDP's gradient is the ranks'
+    average, after the clip)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from point_sam_tpu_torch import models as P
+    from point_sam_tpu_torch.models.loss import criterion
+    from point_sam_tpu_torch.parallel import (
+        initialize,
+        make_optimizer,
+        shutdown,
+        train_step,
+        wrap_ddp,
+    )
+
+    dev = initialize(f"tcp://localhost:{port}", world, rank, device="cuda:0", backend="gloo")
+    rng = np.random.default_rng(1)
+    clouds = [synthetic_cloud(rng, 4096) for _ in range(4)]
+    xyz = np.stack([c[0] for c in clouds])
+    gt = np.zeros((4, 2, 4096), bool)
+    for b in range(4):
+        for m in range(2):
+            d = ((xyz[b] - xyz[b, rng.integers(4096)]) ** 2).sum(-1)
+            gt[b, m] = d < np.quantile(d, 0.2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             dict(coords=xyz, features=np.stack([c[1] for c in clouds]), gt_masks=gt).items()}
+    halves = [{k: v[2 * r:2 * r + 2] for k, v in batch.items()} for r in range(world)]
+
+    def model():
+        return P.PointCloudSAM(P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT),
+                                                tokenizer=P.TokenizerConfig(128, 16)),
+                               device=dev, generator=torch.Generator(dev).manual_seed(0))
+
+    def state(m):
+        named = {k.removeprefix("module."): p for k, p in m.named_parameters()}
+        return ({k: p.detach().clone() for k, p in named.items()},
+                {k: p.grad.clone() for k, p in named.items()})
+
+    def step(m, part):
+        tx = make_optimizer(m.parameters(), lambda c: 1e-4)
+        loss = float(train_step(m, tx, part, torch.Generator().manual_seed(0))["loss"])
+        return (loss, *state(m))
+
+    def halves_step(m):
+        tx = make_optimizer(m.parameters(), lambda c: 1e-4)
+        m.train()
+        tx.zero_grad()
+        for r, part in enumerate(halves):
+            outputs = m(part["coords"], part["features"], part["gt_masks"],
+                        generator=torch.Generator().manual_seed(0), rows=(2 * r, 4))
+            loss, _ = criterion(outputs, part["gt_masks"].reshape(-1, 4096))
+            (loss / world).backward()
+        tx.step()
+        return state(m)
+
+    def largest(a, b):
+        return max(float((a[k] - v).abs().max()) for k, v in b.items())
+
+    loss, params, grads = step(wrap_ddp(model(), dev), halves[rank])
+    if rank == 0:
+        half_params, half_grads = halves_step(model())
+        one_loss, one, one_grads = step(model(), batch)
+        ratio = {k: float((grads[k] - g).abs().max()) / grad_bound(k, g)
+                 for k, g in one_grads.items()}
+        half_ratio = {k: float((half_grads[k] - g).abs().max()) / grad_bound(k, g)
+                      for k, g in one_grads.items()}
+        worst = max(ratio, key=ratio.get)
+        Path(out).write_text(json.dumps(dict(
+            loss=loss, one_loss=one_loss, grads=len(grads),
+            grad_diff=largest(grads, half_grads), param_diff=largest(params, half_params),
+            worst_grad=worst, worst_ratio=ratio[worst], halves_worst_ratio=max(half_ratio.values()),
+            whole_param_diff=largest(params, one), backend=torch.distributed.get_backend())))
+    shutdown()
+
+
+def dist_phases(torch, build_model, load_config) -> None:
+    """Phase 17d: the weights files of the kNN EVA-giant (seed 7) and the
+    ViT-L (seed 17), each model's own fp32 state dict written by
+    ``utils/safetensors_io.py``, then ``dist_rank`` in one spawned rank; a
+    failed rank fails the run. Checked: each run trained its steps with
+    finite losses and no zero grad on its first step outside MAY_BE_ZERO;
+    the FSDP EVA-giant's and the DDP ViT-L's losses and trained parameters
+    against their one-device runs', within DIST_ATOL, every parameter
+    moved by the one-device run; their launches a step (GIANT_MINIMUM /
+    VIT_L_MINIMUM, none of the absent kernels); the DDP checkpoint
+    written, in the one-process layout; ``sharded_knn`` equal to
+    ``ops.knn`` with one K12 launch. Printed: step ms and peak memory
+    beside the one-device runs'. Then phase 17g: ``dist_gloo_rank`` in two
+    ranks on the card, the DDP step's loss within 2e-5 of the plain one's
+    and every gradient within ``grad_bound``."""
+    import gc
+
+    import torch.multiprocessing as mp
+
+    from point_sam_tpu_torch.utils.safetensors_io import save_file
+
+    workdir = ROOT / "build" / "chip_smoke_dist_in"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        files = {}
+        for config, seed in (("giant", 7), ("large", 17)):
+            files[config] = workdir / f"{config}.safetensors"
+            model = build_model(load_config(config).model, device="cuda",
+                                generator=torch.Generator("cuda").manual_seed(seed))
+            save_file(model.state_dict(), files[config])
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        out = workdir / "dist.json"
+        t0 = time.perf_counter()
+        mp.spawn(dist_rank, args=(1, free_ports(3), str(out), str(files["giant"]),
+                                  str(files["large"])), nprocs=1)
+        wall = time.perf_counter() - t0
+        res = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    for path, one, minimum, absent in (
+            ("ddp-train", "vit-one", VIT_L_MINIMUM, VIT_L_ABSENT),
+            ("vit-one", None, VIT_L_MINIMUM, VIT_L_ABSENT),
+            ("fsdp-giant-train", "giant-one", GIANT_MINIMUM, GIANT_ABSENT),
+            ("giant-one", None, GIANT_MINIMUM, GIANT_ABSENT)):
+        r = res[path]
+        check(r["steps"] == 3 and all(math.isfinite(x) for x in r["losses"]),
+              f"{path}: {r['steps']} steps, losses {r['losses']}")
+        bad = [n for n in r["zero_grads"] if not n.startswith(MAY_BE_ZERO)]
+        check(not bad, f"{path}: zero gradient on the first step: {bad}")
+        low = {k: r["launches"][k] for k, lo in minimum.items() if r["launches"][k] < lo}
+        check(not low, f"{path}: launches a step below the minimum: {low}")
+        ran = [k for k in absent if r["launches"][k]]
+        check(not ran, f"{path}: kernels {ran} launched off their path")
+        if one is not None:
+            r["loss_diff"] = max(abs(a - b) for a, b in zip(r["losses"], res[one]["losses"]))
+            check(r["loss_diff"] <= DIST_ATOL and r["param_diff"] <= DIST_ATOL,
+                  f"{path} against {one}: losses {r['losses']} and {res[one]['losses']}, "
+                  f"largest loss difference {r['loss_diff']:.3g}, parameter difference "
+                  f"{r['param_diff']:.3g} > {DIST_ATOL}")
+            frozen = [n for n in r["unmoved"] if not n.startswith(MAY_BE_ZERO)]
+            check(not frozen, f"{one}: parameters the steps did not move: {frozen[:5]}")
+    check(res["ddp-train"]["checkpoint"] == ["ckpt_1.pt"]
+          and res["ddp-train"]["checkpoint_keys"] == ["model", "optimizer", "step"]
+          and res["ddp-train"]["checkpoint_count"] == 3,
+          f"ddp-train: checkpoint {res['ddp-train']['checkpoint']}")
+    k = res["sharded-knn"]
+    check(k["equal"] and k["launches"] == {"K12": 1},
+          f"sharded_knn: equal to ops.knn {k['equal']}, launches {k['launches']}")
+    for path, r in res.items():
+        if "losses" in r:
+            print(f"dist {path}: world size 1, NCCL, rate 3e-4 from step 1; losses {r['losses']}"
+                  + (f"; against its one-device run: largest loss difference "
+                     f"{r['loss_diff']:.3g}, trained parameters {r['param_diff']:.3g} apart "
+                     f"(the one-device run moved them up to {r['max_move']:.3g})"
+                     if "param_diff" in r else "")
+                  + f"; step {r['step_ms']:.3f} ms (median of steps 2-3; first "
+                    f"{r['first_ms']:.1f} ms), peak memory {r['peak_gib']:.3f} GiB; launches "
+                    f"per step {r['launches']}", flush=True)
+    print(f"dist: sharded_knn at the serve shape (world size 1): equal to ops.knn, K12 "
+          f"launches {k['launches']}, {k['ms']:.3f} ms against ops.knn's {k['knn_ms']:.3f} ms; "
+          f"the spawned rank took {wall:.1f} s", flush=True)
+
+    out = ROOT / "build" / "chip_smoke_gloo.json"
+    out.unlink(missing_ok=True)
+    mp.spawn(dist_gloo_rank, args=(2, free_ports(1)[0], str(out)), nprocs=2)
+    g = json.loads(out.read_text())
+    out.unlink()
+    check(g["backend"] == "gloo" and abs(g["loss"] - g["one_loss"]) <= 2e-5 * abs(g["one_loss"])
+          and g["grad_diff"] <= DIST_ATOL and g["param_diff"] <= DIST_ATOL,
+          f"two gloo ranks on one card: {g}")
+    print(f"dist gloo: two ranks on cuda:0, tiny DDP step fp32 at rate 1e-4: rank 0's loss "
+          f"{g['loss']:.7f} against one process's {g['one_loss']:.7f} on the whole batch; "
+          f"against one process's step on the same two halves: {g['grads']} gradients "
+          f"{g['grad_diff']:.3g} apart, trained parameters {g['param_diff']:.3g}; against the "
+          f"whole batch's step: the worst gradient {g['worst_grad']} at {g['worst_ratio']:.3g} "
+          f"of the CPU tests' bound (one process's halves: {g['halves_worst_ratio']:.3g}), "
+          f"parameters {g['whole_param_diff']:.3g} apart", flush=True)
 
 
 # The JAX reference's validation after phase 17l's run (the same config,
@@ -2642,8 +3052,6 @@ def serve_http(torch, np, model, counters, workdir) -> None:
 
 
 def main() -> int:
-    import importlib
-
     import numpy as np
     import torch
 
@@ -2673,15 +3081,8 @@ def main() -> int:
           flush=True)
     resource_usage(_cuda.build())
 
-    mods = [importlib.import_module(f"point_sam_tpu_torch.ops.{m}")
-            for m in ("fps", "patch_encoder_pallas", "attention", "upscale_pallas",
-                      "interp_pallas", "knn")]
+    mods, counters = kernel_counters()
     F, PE, A, UP, IW, K = mods
-    counters = {"K1": F.fps_interp_cuda, "K2": PE.patch_encoder_cuda, "K3": A.mha_cuda,
-                "K4": UP.interp_upscale_cuda, "K5": A.mha_heads_cuda,
-                "K6": A.mha_packed_bwd_cuda, "K7": PE.patch_encoder_bwd_cuda,
-                "K8": F.fps_cuda, "K9": F.fps_interp_knn_cuda, "K10": IW.interp_weights_cuda,
-                "K11": UP.upscale_hyper_cuda, "K12": K.knn_select_cuda}
     dev = torch.device("cuda")
 
     tiny = P.PointCloudSAM(P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT),
@@ -2802,6 +3203,10 @@ def main() -> int:
     rows += check_kernels(torch, np, mods,
                           learning_check(torch, trainer, build_model, load_config, counters),
                           "learn")
+    # Multi-process training and the sharded kNN (world size 1, NCCL), then
+    # two gloo ranks on the card.
+    torch.cuda.empty_cache()
+    dist_phases(torch, build_model, load_config)
 
     train_profile()
     del train_profile  # the ViT-L model and optimizer

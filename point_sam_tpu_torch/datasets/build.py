@@ -1,6 +1,6 @@
 """Dataset construction and fixed-shape batch iteration (the port's own copy
-of point_sam_tpu/datasets/build.py, numpy only; the per-process data
-sharding comes with the multi-GPU slice).
+of point_sam_tpu/datasets/build.py, numpy only), with the per-rank slices
+of a multi-process run.
 
 The batcher yields numpy batches (coords [B,N,3], features [B,N,C],
 gt_masks [B,M,N]) of constant N and M, as the transform chain guarantees.
@@ -97,17 +97,28 @@ class BatchIterator:
     Every example is transformed with its own Generator seeded from
     ``SeedSequence([seed, epoch, index])``, so batches are the same for any
     ``num_workers`` (0 included) and the same as the JAX package's.
+
+    Multi-process runs: ``batch_size`` is the GLOBAL batch and must divide
+    by ``process_count``; every rank shuffles with the same seed and takes
+    its contiguous slice ``[r * B / W, (r + 1) * B / W)`` of each global
+    batch, and a short last batch is dropped (it cannot split evenly).
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle=True, drop_last=True,
-                 seed: int = 0, num_workers: int | None = None, prefetch: int = 2):
+                 seed: int = 0, num_workers: int | None = None, prefetch: int = 2,
+                 process_index: int = 0, process_count: int = 1):
         import os
 
+        if batch_size % max(process_count, 1):
+            raise ValueError(f"global batch_size {batch_size} not divisible by "
+                             f"process_count {process_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = max(process_count, 1)
         self.rng = np.random.default_rng(seed)
         self.num_workers = min(8, os.cpu_count() or 1) if num_workers is None else num_workers
         self.prefetch = prefetch
@@ -141,6 +152,10 @@ class BatchIterator:
         bs = self.batch_size
         end = len(order) - (len(order) % bs if self.drop_last else 0)
         batches = [order[s:s + bs] for s in range(0, end, bs)]
+        if self.process_count > 1:
+            loc = bs // self.process_count
+            lo = self.process_index * loc
+            batches = [idx[lo:lo + loc] for idx in batches if len(idx) == bs]
         if self.num_workers == 0:
             for idx in batches:
                 yield self._stack([self._fetch(i, epoch) for i in idx])

@@ -75,6 +75,9 @@ def cast_params_for_inference(model: nn.Module, dtype: torch.dtype | None = None
 
 
 class PointCloudSAM(nn.Module):
+    # The simulated clicks' sampler (``_click_loop``).
+    click_sampler = "fixed"
+
     def __init__(self, cfg: PointSAMConfig, *, dtype=torch.float32, in_channels: int = 3,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
@@ -147,7 +150,8 @@ class PointCloudSAM(nn.Module):
                            multimask_output=multimask_output)
 
     def forward(self, coords, features, gt_masks, *, is_eval: bool = False,
-                point_valid=None, generator: torch.Generator | None = None):
+                point_valid=None, generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None):
         """Training / evaluation forward with simulated clicks.
 
         Args:
@@ -156,6 +160,9 @@ class PointCloudSAM(nn.Module):
             is_eval: no refinement-only iterations (every iteration clicks).
             generator: draws the refinement iteration; needed when
                 refinement iterations are on and prompt_iters > 1.
+            rows: (start, total): the batch is rows [start, start + B) of
+                one of ``total`` clouds (the random sampler's noise is
+                drawn for all of them); None: the whole batch.
 
         Returns:
             ``prompt_iters`` dicts with prompt_coords, prompt_labels,
@@ -168,11 +175,33 @@ class PointCloudSAM(nn.Module):
         # iterations.
         geom.update(self.prompt_cache(coords, geom))
         return _click_loop(self, pc_embeddings, pc_pe, coords, geom, gt_masks,
-                           is_eval=is_eval, point_valid=point_valid, generator=generator)
+                           is_eval=is_eval, point_valid=point_valid, generator=generator,
+                           sampler=self.click_sampler, rows=rows)
+
+
+def click_draws(cfg, generator: torch.Generator | None, *, is_eval: bool = False,
+                sampler: str = "fixed") -> tuple[int, int | None]:
+    """The draws one simulated-click forward takes from ``generator``, in
+    its order: the refinement-only iteration (-1 when there is none) and,
+    for the random sampler, the seed of its noise (else None). A
+    data-parallel step replays them to find the generator state at which
+    each micro-batch of the global batch starts (``parallel.train_step``)."""
+    sampled_refine, seed = -1, None
+    iters = cfg.prompt_iters
+    if cfg.enable_mask_refinement_iterations and not is_eval and iters > 1:
+        if generator is None:
+            raise ValueError("refinement iterations need a torch.Generator")
+        sampled_refine = int(torch.randint(1, iters, (1,), generator=generator,
+                                           device=generator.device))
+    if sampler == "random":
+        if generator is None:
+            raise ValueError("the random click sampler needs a torch.Generator")
+        seed = int(torch.randint(2 ** 62, (1,), generator=generator, device=generator.device))
+    return sampled_refine, seed
 
 
 def _click_loop(model, pc_embeddings, pc_pe, coords, geom, gt_masks, *, is_eval,
-                point_valid, generator, sampler="fixed", decode_extra=None):
+                point_valid, generator, sampler="fixed", decode_extra=None, rows=None):
     """The prompt-iteration loop (JAX ``_click_loop``).
 
     ``sampler``: "fixed" (``sample_prompts``) or "random"
@@ -182,7 +211,7 @@ def _click_loop(model, pc_embeddings, pc_pe, coords, geom, gt_masks, *, is_eval,
     seed plus its index, so no iteration's clicks depend on which one
     skipped the sampler (JAX draws a key every iteration for the same
     reason). ``decode_extra``: keyword arguments every decode also takes
-    (the hier model's ``embeddings_l1``)."""
+    (the hier model's ``embeddings_l1``). ``rows``: as ``forward``'s."""
     c = model.cfg
     B, M, N = gt_masks.shape
     BM, iters, dev = B * M, c.prompt_iters, coords.device
@@ -191,16 +220,8 @@ def _click_loop(model, pc_embeddings, pc_pe, coords, geom, gt_masks, *, is_eval,
     buf_valid = torch.zeros((BM, iters), dtype=torch.bool, device=dev)
 
     refinement = c.enable_mask_refinement_iterations and not is_eval
-    sampled_refine = -1
-    if refinement and iters > 1:
-        if generator is None:
-            raise ValueError("refinement iterations need a torch.Generator")
-        sampled_refine = int(torch.randint(1, iters, (1,), generator=generator,
-                                           device=generator.device))
+    sampled_refine, seed = click_draws(c, generator, is_eval=is_eval, sampler=sampler)
     if sampler == "random":
-        if generator is None:
-            raise ValueError("the random click sampler needs a torch.Generator")
-        seed = int(torch.randint(2 ** 62, (1,), generator=generator, device=generator.device))
         noise = torch.Generator(dev)
 
     prompt_masks = None
@@ -211,7 +232,8 @@ def _click_loop(model, pc_embeddings, pc_pe, coords, geom, gt_masks, *, is_eval,
             if sampler == "random":
                 new_pc, new_pl = sample_prompts_random(noise.manual_seed(seed + i), coords,
                                                        gt_masks, prompt_masks,
-                                                       point_valid=point_valid)
+                                                       point_valid=point_valid,
+                                                       **({} if rows is None else {"rows": rows}))
             else:
                 new_pc, new_pl = sample_prompts(coords, gt_masks, prompt_masks,
                                                 point_valid=point_valid)

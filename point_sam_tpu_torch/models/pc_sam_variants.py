@@ -146,6 +146,7 @@ class PointCloudSAMNN(nn.Module):
     # ``PointCloudSAMNN.__call__``): the flagship's, over this model's
     # geometry, encode, prompt cache and decode.
     forward = PointCloudSAM.forward
+    click_sampler = "fixed"
 
 
 # ------------------------------------------------------------------ hier
@@ -231,6 +232,8 @@ class MaskDecoderHier(TwoWayDecoderTrunk):
 class PointCloudSAMHier(nn.Module):
     """Hierarchical Point-SAM (reference pc_sam.py:377-496)."""
 
+    click_sampler = "random"
+
     def __init__(self, cfg: HierConfig, *, dtype=torch.float32, in_channels: int = 3,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
@@ -303,7 +306,8 @@ class PointCloudSAMHier(nn.Module):
                            multimask_output=multimask_output)
 
     def forward(self, coords, features, gt_masks, *, is_eval: bool = False,
-                point_valid=None, generator: torch.Generator | None = None):
+                point_valid=None, generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None):
         """Training / evaluation forward with simulated clicks (JAX
         ``PointCloudSAMHier.__call__``): the geometry, one encode, the
         prompt cache once, then the click loop with the random sampler and
@@ -314,5 +318,6 @@ class PointCloudSAMHier(nn.Module):
         pc_embeddings, pc_pe, x1 = self.encode(coords, features, geom)
         geom.update(self.prompt_cache(coords, geom))
         return _click_loop(self, pc_embeddings, pc_pe, coords, geom, gt_masks, is_eval=is_eval,
-                           point_valid=point_valid, generator=generator, sampler="random",
-                           decode_extra=dict(embeddings_l1=x1))
+                           point_valid=point_valid, generator=generator,
+                           sampler=self.click_sampler, decode_extra=dict(embeddings_l1=x1),
+                           rows=rows)

@@ -20,6 +20,7 @@ module of the package on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -89,6 +90,16 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
+    # The ranks of a multi-process run share one build: the first to take
+    # the lock compiles, the others wait and load its library.
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib_path.exists():
+            _compile(out_dir, lib_path)
+    return lib_path
+
+
+def _compile(out_dir: Path, lib_path: Path) -> None:
     tag = os.getpid()
     nvcc = _nvcc()
     jobs = []
@@ -113,7 +124,6 @@ def build() -> Path:
     for *_, obj in jobs:
         obj.unlink()
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
-    return lib_path
 
 
 @functools.cache

@@ -113,11 +113,18 @@ def sample_prompts(coords: torch.Tensor, gt_masks: torch.Tensor,
 @torch.no_grad()
 def sample_prompts_random(generator: torch.Generator, coords: torch.Tensor,
                           gt_masks: torch.Tensor, pred_logits: torch.Tensor | None = None,
-                          *, point_valid: torch.Tensor | None = None):
+                          *, point_valid: torch.Tensor | None = None,
+                          rows: tuple[int, int] | None = None):
     """A uniform-random click in the error region (the GT mask when the
     error region is empty), via a masked argmax over Gumbel noise drawn
-    from ``generator``. Same returns as ``sample_prompts``."""
+    from ``generator``. Same returns as ``sample_prompts``.
+
+    ``rows=(start, total)``: these B clouds are rows [start, start + B) of
+    a batch of ``total``; the noise is drawn for the whole batch and these
+    rows taken, so a cloud's click does not depend on how the batch was
+    split (across ranks or micro-batches)."""
     B, M, N = gt_masks.shape
+    start, total = rows or (0, B)
     diff = gt_masks if pred_logits is None else gt_masks != (pred_logits.reshape(B, M, N) > 0)
     gt_eff = gt_masks
     if point_valid is not None:
@@ -125,7 +132,8 @@ def sample_prompts_random(generator: torch.Generator, coords: torch.Tensor,
         diff, gt_eff = diff & pv, gt_masks & pv
     empty = ~diff.any(-1, keepdim=True)
     diff = torch.where(empty, gt_eff, diff)
-    u = torch.rand((B, M, N), generator=generator, device=coords.device).clamp_min(1e-20)
+    u = torch.rand((total, M, N), generator=generator, device=coords.device)[start:start + B]
+    u = u.clamp_min(1e-20)
     noise = -torch.log(-torch.log(u))
     sel_idx = torch.where(diff, noise, -_INF).argmax(-1).reshape(B * M)
     return _gather_clicks(coords, gt_masks, sel_idx)

@@ -1,16 +1,36 @@
-"""The training step on one device (counterpart of
-point_sam_tpu/parallel/train_step.py without its mesh, FSDP and TP
-branches): forward with simulated clicks, criterion, backward with in-step
-gradient accumulation, clip-by-value, AdamW, schedule.
+"""The training step (counterpart of point_sam_tpu/parallel/train_step.py
+without its TP branch): forward with simulated clicks, criterion, backward
+with in-step gradient accumulation, clip-by-value, AdamW, schedule.
+
+One step serves three kinds of model:
+
+- a plain module: one process, the whole batch;
+- a ``DistributedDataParallel`` wrapper (``param_sharding: replicated``,
+  ``ddp``): each rank's slice of the global batch; every micro-batch but
+  the last runs under ``no_sync()``, so the gradients are all-reduced
+  (averaged) once an optimizer step, as JAX's in-step ``lax.scan`` does;
+- a module under FSDP2's ``fully_shard`` (``param_sharding: fsdp``,
+  ``parallel.fsdp``): as DDP, the gradients reduce-scattered into each
+  rank's shard after every micro-batch.
+
+The loss is a plain mean over masks and every rank's slice holds as many,
+so the averaged gradient is the global batch's. The host draws of the
+click loop (``models.pc_sam.click_draws``) and the random sampler's noise
+come out as in a one-process step of the global batch: every rank replays
+the draws of each global micro-batch from the same generator, and the
+noise is drawn for a whole global micro-batch and sliced (``rows``).
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..models.loss import criterion as default_criterion
+from ..models.pc_sam import click_draws
 
 
 class ClippedAdamW:
@@ -72,31 +92,137 @@ def _metrics_from_aux(aux, gt_flat) -> dict:
     return metrics
 
 
-def train_step(model, tx: ClippedAdamW, batch: dict, generator: torch.Generator, *,
+def data_parallel(model) -> tuple[int, int, str | None]:
+    """(rank, world size, kind) of a model: kind "ddp" for a
+    ``DistributedDataParallel`` wrapper, "fsdp" for a module under
+    ``fully_shard``, None for a plain module (rank 0 of 1)."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.nn.parallel import DistributedDataParallel
+
+    if isinstance(model, DistributedDataParallel):
+        kind = "ddp"
+    elif isinstance(model, FSDPModule):
+        kind = "fsdp"
+    else:
+        return 0, 1, None
+    return dist.get_rank(), dist.get_world_size(), kind
+
+
+def unwrap(model):
+    """The module a ``DistributedDataParallel`` wraps, else ``model``."""
+    return model.module if data_parallel(model)[2] == "ddp" else model
+
+
+def wrap_ddp(model, device, *, find_unused_parameters: bool = False):
+    """``model`` (on ``device``) under ``DistributedDataParallel``: one
+    rank a card (``device_ids``) on CUDA."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    device = torch.device(device)
+    ids = [device.index if device.index is not None else torch.cuda.current_device()] \
+        if device.type == "cuda" else None
+    return DistributedDataParallel(model, device_ids=ids,
+                                   find_unused_parameters=find_unused_parameters)
+
+
+def unused_parameters(model, batch: dict, generator: torch.Generator | None, *,
+                      criterion: Callable = default_criterion) -> list[str]:
+    """The names of the parameters of a plain ``model`` that get no
+    gradient tensor in a forward and backward of the first cloud of
+    ``batch`` (a copy of ``generator`` draws its clicks; the gradients are
+    cleared after). DDP needs ``find_unused_parameters`` only when this
+    is not empty."""
+    part = {k: v[:1] for k, v in batch.items()}
+    gen = None
+    if generator is not None:
+        gen = torch.Generator(generator.device)
+        gen.set_state(generator.get_state())
+    model.train()
+    model.zero_grad(set_to_none=True)
+    outputs = model(part["coords"], part["features"], part["gt_masks"], generator=gen)
+    loss, _ = criterion(outputs, part["gt_masks"].reshape(-1, part["gt_masks"].shape[-1]))
+    loss.backward()
+    names = [n for n, p in model.named_parameters() if p.requires_grad and p.grad is None]
+    model.zero_grad(set_to_none=True)
+    return names
+
+
+def zero_grad_names(model) -> list[str]:
+    """The parameters whose gradient is missing or all zero on every rank
+    (a collective under FSDP, where each rank holds a shard of each)."""
+    from torch.distributed.tensor import DTensor
+
+    named = list(unwrap(model).named_parameters())
+
+    def local(g):
+        return g.to_local() if isinstance(g, DTensor) else g
+
+    nonzero = [p.grad is not None and bool(local(p.grad).ne(0).any()) for _, p in named]
+    if data_parallel(model)[2] == "fsdp":
+        flags = torch.tensor(nonzero, dtype=torch.int32, device=local(named[0][1]).device)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+        nonzero = flags.bool().tolist()
+    return [n for (n, _), nz in zip(named, nonzero) if not nz]
+
+
+def _generator_at(like: torch.Generator, state: torch.Tensor) -> torch.Generator:
+    gen = torch.Generator(like.device)
+    gen.set_state(state)
+    return gen
+
+
+def train_step(model, tx: ClippedAdamW, batch: dict, generator: torch.Generator | None, *,
                criterion: Callable = default_criterion, accum_steps: int = 1) -> dict:
     """One optimizer step over ``batch`` (coords [B, N, 3], features
     [B, N, C], gt_masks [B, M, N] on the model's device), split into
-    ``accum_steps`` micro-batches whose gradients are averaged.
+    ``accum_steps`` micro-batches whose gradients are averaged. Under DDP
+    or FSDP ``batch`` is this rank's slice of the global batch (the
+    iterator's, ``BatchIterator(process_index, process_count)``), and
+    micro-batch ``a`` of the global batch is rows ``[a, a + 1) * B_global
+    / accum_steps``, as JAX splits it.
 
-    Returns the detached metrics (tensors), averaged over micro-batches,
-    with the loss under "loss".
+    Returns the detached metrics (tensors), averaged over micro-batches
+    (and over ranks: the global batch's), with the loss under "loss".
     """
+    rank, world, kind = data_parallel(model)
     B = batch["coords"].shape[0]
     if B % accum_steps:
         raise ValueError(f"batch {B} is not divisible by accum_steps {accum_steps}")
     mb = B // accum_steps
+    global_mb = B * world // accum_steps
+    net = unwrap(model)
+    # The generator state at the start of each global micro-batch, as a
+    # one-process step over the global batch would reach it.
+    starts = []
+    if generator is not None:
+        for _ in range(accum_steps):
+            starts.append(generator.get_state())
+            click_draws(net.cfg, generator, sampler=net.click_sampler)
     model.train()
     tx.zero_grad()
     total: dict = {}
     for a in range(accum_steps):
         part = {k: v[a * mb:(a + 1) * mb] for k, v in batch.items()}
-        outputs = model(part["coords"], part["features"], part["gt_masks"],
-                        generator=generator)
-        gt_flat = part["gt_masks"].reshape(-1, part["gt_masks"].shape[-1])
-        loss, aux = criterion(outputs, gt_flat)
-        (loss / accum_steps).backward()
+        row = rank * B + a * mb  # this micro-batch's first row in the global batch
+        g = row // global_mb
+        gen = None if generator is None else _generator_at(generator, starts[g])
+        # These rows' place in their global micro-batch (a one-process step
+        # takes every micro-batch whole).
+        rows = {} if global_mb == mb else {"rows": (row - g * global_mb, global_mb)}
+        sync = model.no_sync() if kind == "ddp" and a < accum_steps - 1 else nullcontext()
+        with sync:
+            outputs = model(part["coords"], part["features"], part["gt_masks"],
+                            generator=gen, **rows)
+            gt_flat = part["gt_masks"].reshape(-1, part["gt_masks"].shape[-1])
+            loss, aux = criterion(outputs, gt_flat)
+            (loss / accum_steps).backward()
         metrics = dict(_metrics_from_aux(aux, gt_flat), loss=loss)
         for k, v in metrics.items():
             total[k] = total.get(k, 0.0) + v.detach() / accum_steps
+    if world > 1:
+        keys = sorted(total)
+        flat = torch.stack([total[k].float() for k in keys])
+        dist.all_reduce(flat)
+        total = dict(zip(keys, (flat / world).unbind()))
     tx.step()
     return total
