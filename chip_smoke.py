@@ -244,6 +244,30 @@ last line):
    all 4: the loss within 2e-5, every all-reduced gradient within 1e-4 of
    its largest value + 1e-7 (5e-3 for the mask prompt's PointNets), the
    CPU tests' bounds;
+17t. tensor parallelism, one job of two gloo ranks on the one card (``tp_rank``;
+   the model axis both ranks; rank 0 also runs each one-process reference
+   while rank 1 waits): (a) a tensor-parallel train step of the tiny model
+   of 3 in fp32 (the CPU tests' schedule) against one process's step on the
+   same batch from the same weights: the loss within 2e-5 relative, every
+   gathered parameter within 2e-5; (b) the voronoi EVA-giant (a weights
+   file, seed 7) split in two in a bf16 Predictor at N=100k: set_pointcloud
+   and 3 clicks, 8 heads of 88 a rank, K5 40 times an encode at [1, 8,
+   2048, 88], the embeddings within 2e-2 of the largest and the IoU
+   predictions within 2e-2 of one process's Predictor from the same file;
+   (c) the ViT-L recipe (configs/large.yaml, synthetic, one epoch of 3
+   steps at the whole rate, a weights file, seed 17) under TP=2: finite
+   losses, step 1's within 1e-2 relative of one process's, every parameter
+   moved but MAY_BE_ZERO's, K3 and K6 24 times a step at [2, 1024, 512] in
+   8 heads; step ms and peak memory beside one process's;
+12m. in the same job, the point-sharded evaluator: the bf16 ViT-L (G=2048,
+   K=256) with ``group`` on a ``generate_scene`` scene of 200,000 points
+   (bucket 262144, 131072 points a rank), 4 instances, 3 clicks, 4 masks a
+   batch: the sharded path taken, the ranks' IoUs equal and within 2e-2 of
+   one process's evaluator on the same scene (whether the clicks agree, the
+   scene's ms and the sampler's share printed); then as 5 for each path's
+   new launch shapes (``TP_NEW``: paths ``tp-giant-encode`` K5,
+   ``tp-train`` K3 / K6, ``sharded-eval`` K8 at 262144 with 200,000 real
+   points, K12 on rank 1's shard of 68,928 real keys, K10 and K4);
 16. profiles under torch.profiler (device time by stage; K7 by kernel:
    pass C, pass D, the reduction): one ViT-L train step, timed on one batch
    before and after that profiler session, one train step of each voronoi
@@ -351,6 +375,14 @@ def pe_distinct_rows(torch, K, *args) -> int:
     for a in args:
         hit.scatter_(2, a.long(), True)
     return int(hit.sum())
+
+
+START = time.perf_counter()
+
+
+def stamp(label: str) -> None:
+    """Print the seconds since the script started, after ``label``."""
+    print(f"time: {label} done at {time.perf_counter() - START:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -474,8 +506,9 @@ def kernel_case(torch, np, mods, name: str, key: dict, g):
 
     def cloud(B, N, with_valid):
         """B seeded scenes padded to N (100k real points at the serve
-        bucket), the padding at 0 as the Predictor pads; valid or None."""
-        n_real = min(N, N_FLAGSHIP) if with_valid else N
+        bucket, or the key's ``n_real``), the padding at 0 as the Predictor
+        pads; valid or None."""
+        n_real = key.get("n_real", min(N, N_FLAGSHIP)) if with_valid else N
         pts = torch.zeros((B, N, 3), device=dev)
         for b in range(B):
             xyz, _ = synthetic_cloud(np.random.default_rng(b), n_real)
@@ -2665,6 +2698,425 @@ def dist_phases(torch, build_model, load_config) -> None:
           f"parameters {g['whole_param_diff']:.3g} apart", flush=True)
 
 
+# Phases 17t and 12m: tensor parallelism and the point-sharded evaluator,
+# one job of two gloo ranks on the one card (NCCL takes one rank a card).
+TP_WORLD = 2
+TP_DEVICE = "cuda:0"
+# 12m's scene pads to the 262144 bucket (the evaluator's top): 131072 points
+# a rank, the last 62,144 of rank 1's padding.
+SHARDED_POINTS = 200_000
+SHARDED_BUCKETS = (8192, 32768, 131072, 262144)  # the evaluator's own
+SHARDED_MODEL = dict(vit="eva02_large")  # the flagship's PointSAMConfig
+# The launch shapes each path adds; its other kernels run at shapes earlier
+# paths hold to plain (K1, K2, K4, K7 and K12 at train's in tp-train; K4, K8
+# and K10 at voronoi's in tp-giant-encode; K2 at eval's in sharded-eval).
+TP_NEW = {"tp-giant-encode": ("K5",), "tp-train": ("K3", "K6"),
+          "sharded-eval": ("K8", "K12", "K10", "K4")}
+# 17t (a)'s bounds, the CPU tests': the loss relative, every parameter
+# absolute (its gradients: grad_bound); (b)'s bf16 bound against the largest value; (c)'s first loss.
+TP_TINY_TOL = 2e-5
+TP_BF16_TOL = 2e-2
+TP_TRAIN_RTOL = 1e-2
+
+
+def launch_record(counters) -> dict:
+    """The launches of every kernel and, by kernel, its launch keys (as
+    JSON: [[field, value], ...] pairs with their counts)."""
+    return dict(launches={k: fn.launches for k, fn in counters.items()},
+                shapes={k: [[list(map(list, key)), n] for key, n in fn.shapes.items()]
+                        for k, fn in counters.items() if fn.shapes})
+
+
+def tp_rank(rank: int, world: int, port: int, out: str, giant_file: str,
+            large_file: str) -> None:
+    """Phases 17t and 12m's rank (spawned, so at module level): a gloo
+    group of ``world`` ranks on ``cuda:0``, the model axis all of it.
+
+    (a) the tiny model of phase 3 in fp32: one tensor-parallel train step
+        (``tp_shard_model``, ``train_step``) on 2 clouds of 4096 points
+        and, on rank 0, one process's step on the same batch from the same
+        weights (the CPU tests' schedule: rate 1e-6 at count 0), each
+        step's gradients kept before the optimizer (the TP ones gathered
+        into the one-process layout);
+    (b) the voronoi EVA-giant from ``giant_file``, split over the ranks, in
+        a bf16 Predictor at N=100k: set_pointcloud and 3 clicks (counted);
+        rank 0 then the same on one process's Predictor;
+    (c) the ViT-L recipe (configs/large.yaml on the synthetic set, one
+        epoch of 3 steps at the whole rate) from ``large_file`` under TP,
+        then on rank 0 in one process;
+    (d) the bf16 ViT-L evaluator with ``group`` on a ``generate_scene``
+        scene of 200,000 points (bucket 262144), 4 instances, 3 clicks, 4
+        masks a batch; rank 0 then without a group.
+
+    Writes JSON to ``out``/rank<r>.json. The other rank waits at a barrier
+    while rank 0 runs a one-process reference."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from point_sam_tpu_torch import models as P
+    from point_sam_tpu_torch.datasets.synthetic import generate_scene
+    from point_sam_tpu_torch.evalsuite import eval_interactive as EI
+    from point_sam_tpu_torch.parallel import (
+        initialize,
+        make_optimizer,
+        shutdown,
+        tp_gather_state_dict,
+        tp_groups,
+        tp_shard_model,
+        train_step,
+    )
+    from point_sam_tpu_torch.serving import Predictor
+    from point_sam_tpu_torch.train import warmup_multistep
+    from point_sam_tpu_torch.train.trainer import (
+        recipe_criterion,
+        recipe_optimizer,
+        to_device,
+        train_iterator,
+    )
+    from point_sam_tpu_torch.utils.config import build_model, load_config
+    from point_sam_tpu_torch.utils.safetensors_io import load_file
+
+    dev = initialize(f"tcp://localhost:{port}", world, rank, device=TP_DEVICE, backend="gloo")
+    group = dist.group.WORLD
+    groups = tp_groups(1, world)
+    _, counters = kernel_counters()
+    res = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def largest(a: dict, b: dict) -> float:
+        return max(float((a[k].float().cpu() - v.float().cpu()).abs().max())
+                   for k, v in b.items())
+
+    # (a) The tiny model in fp32.
+    rng = np.random.default_rng(1)
+    xyz = np.stack([synthetic_cloud(rng, 4096)[0] for _ in range(2)])
+    gt = np.zeros((2, 2, 4096), bool)
+    for b in range(2):
+        for m in range(2):
+            d = ((xyz[b] - xyz[b, rng.integers(4096)]) ** 2).sum(-1)
+            gt[b, m] = d < np.quantile(d, 0.2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             dict(coords=xyz, features=rng.random(xyz.shape).astype(np.float32),
+                  gt_masks=gt).items()}
+
+    def tiny():
+        return P.PointCloudSAM(P.PointSAMConfig(vit=P.ViTConfig(**TINY_VIT),
+                                                tokenizer=P.TokenizerConfig(128, 16)),
+                               device=dev, generator=torch.Generator(dev).manual_seed(0))
+
+    def tiny_step(model, tp: bool):
+        """(loss, the gradients before the clip and the optimizer)."""
+        tx = make_optimizer(model.parameters(), warmup_multistep(1e-3, [100], warmup_iters=5),
+                            weight_decay=0.1, max_grad_value=1.0)
+        grads, step = {}, tx.step
+
+        def kept_step():
+            g = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+            grads.update(tp_gather_state_dict(model, g) if tp else g)
+            step()
+
+        tx.step = kept_step
+        loss = float(train_step(model, tx, batch, torch.Generator().manual_seed(0))["loss"])
+        return loss, grads
+
+    model = tp_shard_model(tiny(), groups)
+    start = tp_gather_state_dict(model)
+    loss, grads = tiny_step(model, True)
+    params = tp_gather_state_dict(model)
+    if rank == 0:
+        ref = tiny()
+        same_start = largest(start, ref.state_dict()) == 0.0
+        one_loss, one_grads = tiny_step(ref, False)
+        ratio = {k: float((grads[k] - g).abs().max()) / grad_bound(k, g)
+                 for k, g in one_grads.items()}
+        worst = max(ratio, key=ratio.get)
+        res["tiny"] = dict(loss=loss, one_loss=one_loss, same_start=same_start,
+                           param_diff=largest(params, ref.state_dict()),
+                           same_grads=sorted(grads) == sorted(one_grads), grads=len(grads),
+                           worst_grad=worst, worst_ratio=ratio[worst])
+    del model, start, params, grads
+    dist.barrier()
+
+    # (b) The voronoi EVA-giant's Predictor, split over the ranks.
+    sd = load_file(giant_file)
+    giant_cfg = load_config("voronoi_giant").model
+
+    def giant():
+        m = build_model(giant_cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        m.load_state_dict(sd)
+        return m
+
+    xyz, rgb = synthetic_cloud(np.random.default_rng(0), N_FLAGSHIP)
+
+    def serve_run(pred):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(counters)
+        pred.set_pointcloud(xyz, rgb)
+        out = clicks(pred, xyz)
+        torch.cuda.synchronize()
+        rec = launch_record(counters)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["encode_ms"] = time_ms(torch, lambda: pred.set_pointcloud(xyz, rgb), reps=3)
+        emb = pred._state["emb"].float()
+        return rec, emb, [np.asarray(s, np.float32) for _, s, _ in out]
+
+    pred = Predictor(tp_shard_model(giant(), groups), device=dev)
+    heads = pred.model.pc_encoder.transformer.blocks[0].attn.num_heads
+    rec, emb, scores = serve_run(pred)
+    rec["heads"] = heads
+    del pred
+    free()
+    if rank == 0:
+        ref_rec, ref_emb, ref_scores = serve_run(Predictor(giant(), device=dev))
+        rec.update(
+            one=dict(encode_ms=ref_rec["encode_ms"], peak_gib=ref_rec["peak_gib"]),
+            emb_err=float((emb - ref_emb).abs().max()), emb_scale=float(ref_emb.abs().max()),
+            iou_err=max(float(np.abs(a - b).max()) for a, b in zip(scores, ref_scores)),
+            finite=bool(torch.isfinite(emb).all()) and all(np.isfinite(s).all() for s in scores))
+        del ref_emb
+    res["tp-giant-encode"] = rec
+    del sd, emb
+    free()
+    dist.barrier()
+
+    # (c) The ViT-L recipe, 3 steps under TP, then in one process.
+    cfg = load_config("large", [*DIST_VIT_L, FULL_RATE])
+    seed = cfg.get("seed", 42)
+    batches = [to_device(b, dev) for b in train_iterator(cfg, seed)[1]][:3]
+    crit = recipe_criterion(cfg)
+    sd = load_file(large_file)
+
+    def vit_l():
+        m = build_model(cfg.model, device=dev, dtype=torch.bfloat16,
+                        generator=torch.Generator(dev).manual_seed(0))
+        m.load_state_dict(sd)
+        return m
+
+    def steps(model) -> dict:
+        tx, _ = recipe_optimizer(cfg, model.parameters())
+        gen = torch.Generator().manual_seed(seed + 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(counters)
+        losses, ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            losses.append(float(train_step(model, tx, b, gen, criterion=crit)["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rec = launch_record(counters)
+        return dict(rec, losses=losses, step_ms=statistics.median(ms[1:]), first_ms=ms[0],
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    model = tp_shard_model(vit_l(), groups)
+    rec = steps(model)
+    trained = tp_gather_state_dict(model)
+    rec["unmoved"] = [n for n, _ in model.named_parameters()
+                      if torch.equal(trained[n].cpu(), sd[n])]
+    del model, trained
+    free()
+    if rank == 0:
+        rec["one"] = steps(vit_l())
+        rec["one"].pop("shapes")
+    res["tp-train"] = rec
+    del sd
+    free()
+    dist.barrier()
+
+    # (d) The evaluator on a 200,000-point scene, point-sharded over the ranks.
+    ex = generate_scene(0, num_points=SHARDED_POINTS)
+    gt = ex["gt_masks"][EI.filter_masks(ex["gt_masks"])][:4]
+    sxyz, srgb = EI.normalize_scene(ex["coords"], ex["features"])
+    model = P.PointCloudSAM(P.PointSAMConfig(**SHARDED_MODEL), dtype=torch.bfloat16,
+                            device=dev, generator=torch.Generator(dev).manual_seed(0))
+    real_sampler = EI.sample_prompts
+    spans, picked = [], []
+
+    def sampler(*args, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = real_sampler(*args, **kw)
+        e.record()
+        spans.append((s, e))
+        picked.append(out[0][:, 0].float().cpu())
+        return out
+
+    def evaluate(ev) -> dict:
+        spans.clear()
+        picked.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(counters)
+        t0 = time.perf_counter()
+        ious = ev.evaluate_scene(sxyz, srgb, gt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rec = launch_record(counters)
+        return dict(rec, ious=ious.tolist(), scene_ms=wall,
+                    sampler_ms=sum(s.elapsed_time(e) for s, e in spans), sampler_calls=len(spans),
+                    clicks=torch.cat(picked).tolist(),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    EI.sample_prompts = sampler
+    try:
+        ev = EI.InteractiveEvaluator(model, device=dev, num_clicks=3, masks_per_batch=4,
+                                     point_buckets=SHARDED_BUCKETS, group=group)
+        n_pad = ev._bucket(len(sxyz))
+        rec = dict(evaluate(ev), n_pad=n_pad, instances=len(gt),
+                   use_sharded=ev._use_sharded(n_pad, ev._tokenizer_for(len(sxyz))))
+        if rank == 0:
+            one = evaluate(EI.InteractiveEvaluator(model, device=dev, num_clicks=3,
+                                                   masks_per_batch=4,
+                                                   point_buckets=SHARDED_BUCKETS))
+            one.pop("shapes")
+            rec["one"] = one
+    finally:
+        EI.sample_prompts = real_sampler
+    res["sharded-eval"] = rec
+    del model
+    free()
+    dist.barrier()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    shutdown()
+
+
+def tp_phases(torch, np, mods, build_model, load_config) -> list:
+    """Phases 17t and 12m: the weights files of the voronoi EVA-giant (seed
+    7) and the ViT-L recipe's model (seed 17), then ``tp_rank`` in two
+    spawned gloo ranks on the card; a failed rank fails the run. Checked:
+    (a) the tiny TP step's loss within TP_TINY_TOL relative, every
+    parameter within TP_TINY_TOL and every gathered gradient within
+    ``grad_bound`` of one process's step; (b) the giant's
+    heads 8 a rank, K5 40 launches an encode at [1, 8, 2048, 88], the
+    embeddings within TP_BF16_TOL of the largest and the IoU predictions
+    within TP_BF16_TOL of one process's, all finite; (c) 3 finite losses,
+    step 1's within TP_TRAIN_RTOL of one process's, every parameter moved
+    but MAY_BE_ZERO's, K3 and K6 24 launches a step at 8 heads; (d) the
+    sharded path taken, both ranks' IoUs equal, within TP_BF16_TOL of one
+    process's, in [0, 1]. Printed: times and peaks beside one process's,
+    whether the clicks agree, the scene's wall time and sampler share.
+    Then ``check_kernels`` for each path's new launch shapes (TP_NEW,
+    rank 0's counts; K12 at rank 1's shard, its 68,928 real points).
+    Returns their rows."""
+    import gc
+
+    import torch.multiprocessing as mp
+
+    from point_sam_tpu_torch.utils.safetensors_io import save_file
+
+    workdir = ROOT / "build" / "chip_smoke_tp"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        files = {}
+        for config, seed in (("voronoi_giant", 7), ("large", 17)):
+            files[config] = workdir / f"{config}.safetensors"
+            model = build_model(load_config(config).model, device="cuda",
+                                generator=torch.Generator("cuda").manual_seed(seed))
+            save_file(model.state_dict(), files[config])
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(tp_rank, args=(TP_WORLD, free_ports(1)[0], str(workdir),
+                                str(files["voronoi_giant"]), str(files["large"])),
+                 nprocs=TP_WORLD)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    r0, r1 = ranks
+
+    t = r0["tiny"]
+    check(t["same_start"] and abs(t["loss"] - t["one_loss"]) <= TP_TINY_TOL * abs(t["one_loss"])
+          and t["param_diff"] <= TP_TINY_TOL and t["same_grads"] and t["worst_ratio"] <= 1.0,
+          f"17t tiny TP step against one process: {t}")
+    print(f"tp tiny: 2 ranks on cuda:0 (gloo), fp32 TP step: loss {t['loss']:.7f} against one "
+          f"process's {t['one_loss']:.7f}, trained parameters {t['param_diff']:.3g} apart; "
+          f"{t['grads']} gathered gradients, the worst at {t['worst_ratio']:.3g} of its bound "
+          f"({t['worst_grad']}; grad_bound)", flush=True)
+
+    g = r0["tp-giant-encode"]
+    k5 = {tuple(map(tuple, key)): n for key, n in g["shapes"].get("K5", [])}
+    want_key = (("B", 1), ("heads", 8), ("S", 2048), ("dh", 88), ("dtype", "torch.bfloat16"))
+    check(g["heads"] == 8 and k5 == {want_key: 40}, f"17t giant: K5 launches {k5}")
+    check(g["finite"] and g["emb_err"] <= TP_BF16_TOL * g["emb_scale"]
+          and g["iou_err"] <= TP_BF16_TOL,
+          f"17t giant against one process: embeddings {g['emb_err']:.3g} of "
+          f"{g['emb_scale']:.3g}, IoU predictions {g['iou_err']:.3g}")
+    print(f"tp giant: voronoi EVA-giant bf16 over 2 ranks (8 heads of 88 each), N={N_FLAGSHIP}: "
+          f"encode {g['encode_ms']:.3f} ms (one process {g['one']['encode_ms']:.3f} ms), peak "
+          f"{g['peak_gib']:.3f} GiB a rank (one process {g['one']['peak_gib']:.3f}); embeddings "
+          f"{g['emb_err']:.3g} from one process's (largest {g['emb_scale']:.3g}), IoU predictions "
+          f"{g['iou_err']:.3g}; launches {g['launches']}", flush=True)
+
+    tr = r0["tp-train"]
+    check(len(tr["losses"]) == 3 and all(math.isfinite(x) for x in tr["losses"])
+          and tr["losses"] == r1["tp-train"]["losses"], f"17t train losses {tr['losses']}")
+    rel = abs(tr["losses"][0] - tr["one"]["losses"][0]) / abs(tr["one"]["losses"][0])
+    check(rel <= TP_TRAIN_RTOL, f"17t train: step 1 loss {tr['losses'][0]} against one "
+          f"process's {tr['one']['losses'][0]} ({rel:.3g} > {TP_TRAIN_RTOL})")
+    frozen = [n for n in tr["unmoved"] if not n.startswith(MAY_BE_ZERO)]
+    check(not frozen, f"17t train: parameters the TP steps did not move: {frozen[:5]}")
+    keys = {name: {tuple(map(tuple, key)): n for key, n in tr["shapes"].get(name, [])}
+            for name in ("K3", "K6")}
+    for name, by_key in keys.items():
+        want_key = (("B", 2), ("S", 1024), ("D", 512), ("heads", 8), ("dtype", "torch.bfloat16"))
+        check(by_key == {want_key: 72}, f"17t train: {name} launches {by_key}")
+    print(f"tp train: ViT-L (configs/large.yaml) over 2 ranks, bf16, 3 steps at 3e-4: losses "
+          f"{tr['losses']} (one process {tr['one']['losses']}; step 1 {rel:.3g} apart); step "
+          f"{tr['step_ms']:.1f} ms (first {tr['first_ms']:.1f}; one process "
+          f"{tr['one']['step_ms']:.1f}, first {tr['one']['first_ms']:.1f}), peak "
+          f"{tr['peak_gib']:.3f} GiB a rank (one process {tr['one']['peak_gib']:.3f}); launches "
+          f"a step {({k: v / 3 for k, v in tr['launches'].items() if v})}", flush=True)
+
+    e = r0["sharded-eval"]
+    ious, one = np.asarray(e["ious"]), np.asarray(e["one"]["ious"])
+    check(e["use_sharded"] and e["n_pad"] == 262144 and e["instances"] == 4,
+          f"12m: sharded {e['use_sharded']}, bucket {e['n_pad']}, {e['instances']} instances")
+    check(ious.shape == (4, 3) and np.isfinite(ious).all() and (ious >= 0).all()
+          and (ious <= 1).all(), f"12m: IoUs {ious}")
+    check(e["ious"] == r1["sharded-eval"]["ious"], "12m: the ranks' IoUs differ")
+    diff = float(np.abs(ious - one).max())
+    check(diff <= TP_BF16_TOL, f"12m: IoUs {ious.tolist()} against one process's "
+          f"{one.tolist()}: {diff:.3g} > {TP_BF16_TOL}")
+    print(f"eval sharded: ViT-L bf16 over 2 ranks, a {SHARDED_POINTS}-point scene (bucket "
+          f"262144, 131072 points a rank), 4 instances, 3 clicks, 4 masks a batch: IoUs "
+          f"{np.round(ious, 4).tolist()}; one process {np.round(one, 4).tolist()}, largest "
+          f"difference {diff:.3g}, clicks equal {e['clicks'] == e['one']['clicks']}; scene "
+          f"{e['scene_ms']:.1f} ms, sampler {e['sampler_ms']:.1f} ms "
+          f"({e['sampler_ms'] / e['scene_ms']:.1%}, {e['sampler_calls']} calls); one process "
+          f"{e['one']['scene_ms']:.1f} ms, sampler {e['one']['sampler_ms']:.1f} ms; peak "
+          f"{e['peak_gib']:.3f} GiB a rank (one process {e['one']['peak_gib']:.3f}); launches "
+          f"{e['launches']}", flush=True)
+    print(f"tp: the two-rank job took {wall:.1f} s", flush=True)
+
+    rows = []
+    for path, names in TP_NEW.items():
+        shapes = {}
+        for name in names:
+            src = r1 if (path, name) == ("sharded-eval", "K12") else r0
+            by_key = {}
+            for key, n in src[path]["shapes"].get(name, []):
+                key = tuple(map(tuple, key))
+                if path == "sharded-eval" and name in ("K8", "K12"):
+                    real = SHARDED_POINTS - (131072 if name == "K12" else 0)
+                    key += (("n_real", real),)
+                by_key[key] = n
+            check(by_key, f"{path}: {name} did not launch")
+            shapes[name] = by_key
+        rows += check_kernels(torch, np, mods, shapes, path)
+    return rows
+
+
 # The JAX reference's validation after phase 17l's run (the same config,
 # overrides and 640 steps) through its trainer CLI on the CPU
 # (scripts/learning_cpu.py), one run a seed: from its own initial weights
@@ -3107,6 +3559,7 @@ def main() -> int:
     serve_shapes = serve(torch, np, Predictor(vit_l()), counters, "flagship ViT-L",
                          {"K1": 1, "K2": 2, "K3": 24, "K4": 3, "K12": 1}, absent=("K9",))
     rows = check_kernels(torch, np, mods, serve_shapes, "serve")
+    stamp("4 / 5")
     torch.cuda.empty_cache()
     attention_edges(torch, A)
     patch_encoder_edges(torch, PE)
@@ -3121,6 +3574,7 @@ def main() -> int:
     check(k5 == 40, f"voronoi EVA-giant: K5 launched {k5} times, not once per block (40)")
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, voronoi, "voronoi")
+    stamp("6 / 7 / 8")
 
     # The hier path: the tiny model at both routes of the tail, then
     # EVA02-L at the model's grouping (K4) and at the level-1 override
@@ -3147,6 +3601,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, hier_shapes, "hier")
     rows += check_kernels(torch, np, mods, hier_big, "hier4096")
+    stamp("9 / 10 / 11")
 
     # The fused-geometry path: the ViT-L of phase 4 with knn_method="approx".
     fused = serve(torch, np, Predictor(vit_l("approx")), counters, "fused-geometry ViT-L",
@@ -3158,6 +3613,7 @@ def main() -> int:
     # Phase 12k: K12 alone at the paths' shapes, both modes, ties, invalid keys.
     rows += check_kernels(torch, np, mods, {"K12": {tuple(c.items()): 0 for c in K12_CASES}},
                           "knn")
+    stamp("12 / 12k")
 
     # Evaluation and the demo server: the tiny evaluator on the card against
     # the CPU, the flagship evaluation in three arms, then the HTTP server.
@@ -3173,6 +3629,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
+    stamp("12e / 12f / 12s")
 
     train_step_tiny(torch, np, P, PS, criterion, counters)
     train_step_tiny_voronoi(torch, np, P, PS, criterion, counters)
@@ -3180,6 +3637,7 @@ def main() -> int:
     train, train_profile = train_vit_l(torch, trainer, build_model, load_config, counters)
     torch.cuda.empty_cache()
     rows += check_kernels(torch, np, mods, train, "train")
+    stamp("13 / 13v / 13h / 14 / 15")
     check({r["kernel"] for r in rows} == set(counters), "a kernel was checked on no path")
     pe_train_repeats(torch, PE)
     patch_encoder_bwd_edges(torch, PE)
@@ -3189,6 +3647,7 @@ def main() -> int:
         rows += check_kernels(torch, np, mods, shapes, path)
     hier_train = train_hier(torch, trainer, build_model, load_config, counters)
     rows += check_kernels(torch, np, mods, hier_train, "hier-train")
+    stamp("15c / 15b / 14v / 15v / 14h / 15h")
 
     # Trained weights: a released checkpoint, the recipes from Uni3D
     # encoders, the learning check.
@@ -3200,13 +3659,20 @@ def main() -> int:
     for path, shapes in train_recipes(torch, trainer, build_model, load_config,
                                       counters).items():
         rows += check_kernels(torch, np, mods, shapes, path)
+    stamp("17c / 17r")
     rows += check_kernels(torch, np, mods,
                           learning_check(torch, trainer, build_model, load_config, counters),
                           "learn")
+    stamp("17l")
     # Multi-process training and the sharded kNN (world size 1, NCCL), then
     # two gloo ranks on the card.
     torch.cuda.empty_cache()
     dist_phases(torch, build_model, load_config)
+    stamp("17d / 17g")
+    # Tensor parallelism and the point-sharded evaluator: two gloo ranks.
+    torch.cuda.empty_cache()
+    rows += tp_phases(torch, np, mods, build_model, load_config)
+    stamp("17t / 12m")
 
     train_profile()
     del train_profile  # the ViT-L model and optimizer
@@ -3222,6 +3688,7 @@ def main() -> int:
                    group_number=4096)
     profile_encode(torch, np, vit_l("approx"), "fused-geometry ViT-L", counters)
     profile_attention_bwd(torch, A)
+    stamp("16")
 
     meta = {
         "K1": ("fps_interp", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:138"),

@@ -14,6 +14,15 @@ evaluator, so both packages see the same shapes; the tokenizer rule is
 applied per scene (``gk_policy``). Each scene is tokenized and encoded
 once; its instances then go through the click loop ``masks_per_batch`` at
 a time, eagerly under ``torch.inference_mode``.
+
+With a process group (``group=``, JAX's ``mesh=``) of more than one rank,
+a flat-tokenizer scene at or above the top bucket runs point-sharded:
+every rank holds the whole scene, FPS (K8 on the card) and the 3-NN
+weights (K10) are replicated, the G x K neighbour search runs on each
+rank's contiguous shard of the points (``parallel.sharded_geometry.
+sharded_knn``, K12, one all-gather), and the decoder's N-point tail on
+each rank's shard (``models.for_sharded_eval``). The click sampler stays
+replicated. Every rank returns the same IoUs.
 """
 
 from __future__ import annotations
@@ -25,12 +34,15 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.loss import compute_iou
-from ..models.pc_sam import cast_params_for_inference, for_inference
+from ..models.pc_sam import cast_params_for_inference, for_inference, for_sharded_eval
 from ..models.tokenizer import TokenizerConfig
+from ..ops import batch_index_select, compute_interp_weights, fps
 from ..ops._cuda import resolve_device
 from ..ops.sampler import sample_prompts
+from ..parallel.sharded_geometry import sharded_knn
 
 
 def filter_masks(
@@ -69,7 +81,7 @@ class InteractiveEvaluator:
                  point_buckets=(8192, 32768, 131072, 262144),
                  masks_per_batch: int = 4, knn_method: str = "auto",
                  gk_policy: str = "bucket_pow2", fps_candidates: int | None = None,
-                 knn_recall_target: float = 0.9):
+                 knn_recall_target: float = 0.9, group=None):
         """Args beyond the obvious:
 
         device: where the model and every tensor live; ``cuda`` unless
@@ -93,6 +105,10 @@ class InteractiveEvaluator:
             - "reference": the reference's exact per-scene rule
               (eval_kitti.py:350-362): N>30000 -> G=2048/K=256, else
               G=min(N, 2048), K=256 (K=2 when N<256).
+        group: a ``torch.distributed`` process group (JAX's ``mesh``);
+            scenes padded to ``point_buckets[-1]`` or more then run
+            point-sharded over its ranks (the module docstring). Every rank
+            calls ``evaluate_scene`` with the same scene.
         """
         if gk_policy not in ("bucket_pow2", "reference"):
             raise ValueError(f"unknown gk_policy {gk_policy!r}")
@@ -107,6 +123,7 @@ class InteractiveEvaluator:
         self.gk_policy = gk_policy
         self.fps_candidates = fps_candidates
         self.knn_recall_target = knn_recall_target
+        self.group = group
 
     def _bucket(self, n):
         for b in self.point_buckets:
@@ -137,10 +154,41 @@ class InteractiveEvaluator:
         k = min(tok.patch_size, max(2, n // 4))
         return TokenizerConfig(min(g, tok.num_patches * 2), k, **kw)
 
+    def _use_sharded(self, n_pad, tok) -> bool:
+        """JAX's rule: more than one rank, a flat tokenizer, the top bucket
+        or above, a ``PointCloudSAM``."""
+        return (
+            self.group is not None
+            and dist.get_world_size(self.group) > 1
+            and tok is not None
+            and n_pad >= self.point_buckets[-1]
+            and type(self.model).__name__ == "PointCloudSAM"
+        )
+
+    def _sharded_geometry(self, tok, coords, valid) -> dict:
+        """The tokenizer geometry with the G x K search split over the
+        ranks' contiguous point shards (JAX's ``_sharded_geometry``): FPS
+        and the 3-NN weights whole on every rank."""
+        world, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        n_pad = coords.shape[1]
+        if n_pad % world:
+            raise ValueError(f"{n_pad} points do not split over {world} ranks")
+        coords = coords.float()
+        fps_idx = fps(coords, tok.num_patches, valid=valid, candidates=tok.fps_candidates)
+        centers = batch_index_select(coords, fps_idx, axis=1)
+        part = slice(rank * n_pad // world, (rank + 1) * n_pad // world)
+        _, knn_idx = sharded_knn(centers, coords[:, part].contiguous(), tok.patch_size,
+                                 group=self.group, method=tok.knn_method,
+                                 recall_target=tok.knn_recall_target,
+                                 key_valid=valid[:, part].contiguous())
+        idx, w = compute_interp_weights(coords, centers)
+        return dict(fps_idx=fps_idx, centers=centers, knn_idx=knn_idx, interp_index=idx,
+                    interp_weight=w)
+
     def _tensor(self, a):
         return torch.as_tensor(a, device=self.device)
 
-    def _click_loop(self, encoded, coords, geom, valid, gt_masks):
+    def _click_loop(self, model, encoded, coords, geom, valid, gt_masks):
         """One chunk of instances through the clicks (JAX ``_build_fn``'s
         loop): [clicks, B*M] IoUs. ``encoded``: ``encode``'s outputs, the
         hier model's level-1 embeddings riding along to every decode."""
@@ -159,7 +207,7 @@ class InteractiveEvaluator:
             buf_c[:, i] = pc[:, 0]
             buf_l[:, i] = pl[:, 0]
             buf_v[:, i] = True
-            masks, iou_preds = self.model.decode(
+            masks, iou_preds = model.decode(
                 emb, pc_pe, coords, geom, *extras, buf_c[:, :i + 1], buf_l[:, :i + 1],
                 prompt_masks, prompt_valid=buf_v[:, :i + 1], multimask_output=(i == 0))
             if i == 0:
@@ -193,8 +241,12 @@ class InteractiveEvaluator:
         # The encode does not depend on the masks: once per scene (JAX's
         # jitted run repeats it per chunk, with the same numbers).
         model = self.model
-        geom = model.make_geometry(coords, point_valid=valid,
-                                   **({} if tok is None else {"tokenizer": tok}))
+        if self._use_sharded(n_pad, tok):
+            model = for_sharded_eval(model, self.group)
+            geom = self._sharded_geometry(tok, coords, valid)
+        else:
+            geom = model.make_geometry(coords, point_valid=valid,
+                                       **({} if tok is None else {"tokenizer": tok}))
         geom.update(model.prompt_cache(coords, geom))  # geometry only: bit-equal
         encoded = model.encode(coords, feats, geom)
 
@@ -209,7 +261,7 @@ class InteractiveEvaluator:
                 chunk = np.concatenate([chunk, np.repeat(chunk[:1], mb - real, axis=0)])
             gm = np.zeros((1, mb, n_pad), bool)
             gm[0, :, :n] = chunk
-            ious = self._click_loop(encoded, coords, geom, valid, self._tensor(gm))
+            ious = self._click_loop(model, encoded, coords, geom, valid, self._tensor(gm))
             out[s:s + real] = ious.float().cpu().numpy()[:, :real].T
         return out
 
@@ -227,7 +279,8 @@ def evaluate_directory(
 
     ``evaluator_kwargs`` pass through to ``InteractiveEvaluator``:
     gk_policy / knn_method / knn_recall_target / fps_candidates /
-    masks_per_batch / point_buckets.
+    masks_per_batch / point_buckets / group (a process group: big scenes
+    point-sharded over its ranks; every rank runs this call).
     """
     from ..utils.ply import load_ply
 

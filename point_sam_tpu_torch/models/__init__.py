@@ -5,7 +5,13 @@ from .layers import GELU, MLP, CoordMLP, Dense, Embedding, LayerNorm, MLPBlock, 
 from .mask_decoder import MaskDecoder, OutputUpscaling, TwoWayDecoderTrunk
 from .patch_encoder import PatchEncoder
 from .pc_encoder import PatchEmbed, PatchEmbedHier, PatchEmbedNN, PointCloudEncoder, PreLNBlock
-from .pc_sam import PointCloudSAM, PointSAMConfig, cast_params_for_inference, for_inference
+from .pc_sam import (
+    PointCloudSAM,
+    PointSAMConfig,
+    cast_params_for_inference,
+    for_inference,
+    for_sharded_eval,
+)
 from .pc_sam_variants import (
     HierConfig,
     MaskDecoderHier,
@@ -42,5 +48,6 @@ __all__ = [
     "TwoWayDecoderTrunk", "TwoWayTransformer", "VIT_PRESETS", "ViT", "ViTConfig",
     "VoronoiConfig", "cast_params_for_inference", "compute_geometry", "compute_geometry_hier",
     "compute_geometry_voronoi", "compute_iou", "compute_jaccard", "compute_mask_loss",
-    "criterion", "for_inference", "get_vit_config", "mask_group_rel_xyz", "mask_nbr_dist",
+    "criterion", "for_inference", "for_sharded_eval", "get_vit_config", "mask_group_rel_xyz",
+    "mask_nbr_dist",
 ]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -79,6 +80,144 @@ class LayerNorm(nn.Module):
         x32 = x.float()
         c = x32 - x32.mean(-1, keepdim=True)
         var = (c * c).mean(-1, keepdim=True)
+        y = c * (torch.rsqrt(var + 1e-5) * self.weight) + self.bias
+        return y.to(self.dtype)
+
+
+# ------------------------------------------------------ tensor parallelism
+# Megatron's two collectives around a tensor-parallel region of the ViT
+# (parallel/tensor_parallel.py shards the blocks): ``tp_copy`` (f) at the
+# input of a column-parallel group, identity forward and an all-reduce of
+# the input gradient backward; ``tp_reduce`` (g) after a row-parallel
+# product, an all-reduce forward and identity backward. ``tp_sum`` is an
+# all-reduce both ways: a statistic that every rank's shard feeds and
+# every rank's output reads.
+
+
+def _all_reduced(t: torch.Tensor, group) -> torch.Tensor:
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduced(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumOverTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduced(g, ctx.group), None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToTP.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromTP.apply(x, group)
+
+
+def tp_sum(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumOverTP.apply(x, group)
+
+
+def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an fp32 result: for bf16 operands on the card the product
+    accumulates in fp32 and is not rounded to bf16 (``out_dtype``); the
+    products of bf16 values are exact in fp32, so on the CPU the fp32
+    product of the widened operands is the same function."""
+    if a.dtype != torch.float32 and a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _PartialProduct(torch.autograd.Function):
+    """x [.., in] @ w[out, in]^T as an fp32 partial sum; the backward is a
+    Dense's in the compute dtype (the gradient of the reduced fp32 sum is
+    the compute-dtype gradient of the output, widened, so it narrows back
+    exactly)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = _mm_fp32(x.reshape(-1, x.shape[-1]), w.t())
+        return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w
+        gw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return gx, gw
+
+
+class RowParallelDense(Dense):
+    """A Dense whose input features are split over the ranks of ``group``
+    (Megatron's row-parallel linear): each rank's product over its slice is
+    an fp32 partial sum, the partials are all-reduced in fp32 (``tp_reduce``),
+    the bias is added once and the sum is cast to ``dtype`` once (bf16
+    matmuls accumulate in fp32, and nothing is rounded twice). ``weight`` is
+    this rank's [out, in / W] slice; ``bias`` [out] is whole."""
+
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None, group, *, dtype):
+        nn.Module.__init__(self)
+        self.dtype = dtype
+        self.group = group
+        self.weight = nn.Parameter(weight)
+        self.bias = None if bias is None else nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        part = _PartialProduct.apply(x.to(self.dtype), self.weight.to(self.dtype))
+        out = tp_reduce(part, self.group)
+        if self.bias is not None:
+            out = out + self.bias.float()
+        return out.to(self.dtype)
+
+
+class ShardedLayerNorm(LayerNorm):
+    """LayerNorm over a feature axis split over the ranks of ``group``
+    (the EVA02 sub-LN under tensor parallelism): the statistics are the
+    whole axis's, fp32 and two-pass as ``LayerNorm``'s, from two
+    all-reduces (the sum, then the sum of squared deviations). ``weight``
+    and ``bias`` are this rank's slices; ``dim`` is the whole axis."""
+
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor, dim: int, group, *, dtype):
+        nn.Module.__init__(self)
+        self.dtype = dtype
+        self.dim = dim
+        self.group = group
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = tp_sum(x32.sum(-1, keepdim=True), self.group) / self.dim
+        c = x32 - mean
+        var = tp_sum((c * c).sum(-1, keepdim=True), self.group) / self.dim
         y = c * (torch.rsqrt(var + 1e-5) * self.weight) + self.bias
         return y.to(self.dtype)
 

@@ -12,11 +12,20 @@ and the projection costs N/G times less. The rest of the tail runs in
 ``ops.decoder_tail``, which routes by shape as the JAX decoder does:
 kernel K4 (interpolation fused in) where JAX's K4 gate holds, else a plain
 3-NN gather and kernel K11.
+
+With ``point_group`` set (``models.pc_sam.for_sharded_eval``, the
+big-scene evaluator) the N-point tail is split over the group's ranks:
+rank r decodes rows [r * n, (r + 1) * n) of the 3-NN geometry, n = ceil(N
+/ W), against the whole tokens (the route chosen at n rows: K4 where the
+gate holds, else the gather and K11), and an all-gather along N returns
+the whole [B*M, C, N] logits to every rank (JAX's ``point_mesh`` decode;
+evaluation only: no gradient crosses the gather).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops import decoder_tail, repeat_interleave
@@ -105,6 +114,7 @@ class MaskDecoder(TwoWayDecoderTrunk):
         self.output_upscaling = OutputUpscaling(D, **kw)
         self.output_hypernetworks_mlps = nn.ModuleList(
             MLP(D, D, D, 3, **kw) for _ in range(self.num_mask_tokens))
+        self.point_group = None  # see the module docstring
 
     def forward(self, pc_embeddings, pc_pe, sparse_prompt_embeddings,
                 dense_prompt_embeddings, *, interp_index, interp_weight,
@@ -127,7 +137,32 @@ class MaskDecoder(TwoWayDecoderTrunk):
         hyper_in = torch.stack(
             [self.output_hypernetworks_mlps[i](mask_tokens_out[:, i]) for i in token_slice],
             dim=1)  # [B*M, C, D]
-        masks = decoder_tail(
-            h1, interp_index, interp_weight, self.output_upscaling.tail_params(),
-            hyper_in, cdt=self.dtype)
+        params = self.output_upscaling.tail_params()
+        if self.point_group is None:
+            masks = decoder_tail(h1, interp_index, interp_weight, params, hyper_in,
+                                 cdt=self.dtype)
+        else:
+            masks = _point_sharded_tail(h1, interp_index, interp_weight, params, hyper_in,
+                                        self.dtype, self.point_group)
         return masks, self.iou(hs, token_slice)
+
+
+def _point_sharded_tail(h1, index, weight, params, hyper, cdt, group):
+    """``decoder_tail`` on this rank's rows of the geometry, then the
+    ranks' logits gathered along N (a short last shard padded with zero
+    weights, its extra logits dropped)."""
+    if torch.is_grad_enabled() and h1.requires_grad:
+        raise RuntimeError("the point-sharded decode is for evaluation: no gradient "
+                           "crosses its all-gather")
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    N = index.shape[1]
+    n = -(-N // world)
+    lo, hi = min(rank * n, N), min((rank + 1) * n, N)
+    idx, w = index[:, lo:hi], weight[:, lo:hi]
+    if hi - lo < n:
+        pad = (idx.shape[0], n - (hi - lo), idx.shape[2])
+        idx, w = torch.cat([idx, idx.new_zeros(pad)], 1), torch.cat([w, w.new_zeros(pad)], 1)
+    local = decoder_tail(h1, idx.contiguous(), w.contiguous(), params, hyper, cdt=cdt)
+    parts = [torch.empty_like(local) for _ in range(world)]
+    dist.all_gather(parts, local.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)[..., :N]

@@ -16,6 +16,7 @@ region), whose noise is drawn on the coordinates' device.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -58,6 +59,24 @@ def for_inference(model):
     while a gradient is recorded, so this is the identity (kept so callers
     read the same in both packages)."""
     return model
+
+
+def for_sharded_eval(model, group):
+    """A copy of ``model`` whose decoder splits its N-point tail over the
+    ranks of ``group`` (``MaskDecoder.point_group``: each rank decodes its
+    shard of the points, an all-gather returns the whole logits). Every
+    parameter and buffer is ``model``'s own, not a copy; ``model`` itself
+    is unchanged. The big-scene evaluator uses it together with the
+    point-sharded kNN (``parallel.sharded_geometry``)."""
+    if not isinstance(getattr(model, "mask_decoder", None), MaskDecoder):
+        raise TypeError(f"{type(model).__name__} has no MaskDecoder to shard")
+    if model.mask_decoder.point_group is group:
+        return model
+    decoder = copy.copy(model.mask_decoder)
+    decoder.point_group = group
+    out = copy.copy(model)
+    out._modules = {**model._modules, "mask_decoder": decoder}
+    return out
 
 
 @torch.no_grad()

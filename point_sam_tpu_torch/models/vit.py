@@ -16,6 +16,14 @@ Attention runs through ``ops.mha_flat``: kernel K3 at EVA02's head size 64,
 kernel K5 at EVA-giant's 88. The blocks are one ``nn.ModuleList`` named
 ``blocks``, so state-dict keys are ``blocks.{i}....`` as in timm.
 
+Under tensor parallelism (``parallel.tensor_parallel.shard_model``) an
+attention runs on its rank's heads and an MLP on its rank's slice of the
+hidden axis: ``tp_group`` is set, the input passes ``tp_copy`` (Megatron's
+f), the projections into the heads or the hidden axis hold their rank's
+output features, ``proj`` / ``fc2`` are ``RowParallelDense`` (the partial
+sums all-reduced in fp32, Megatron's g) and the sub-LN is a
+``ShardedLayerNorm``. ``num_heads`` is then the rank's head count.
+
 With ``remat`` (JAX's ``nn.remat`` on every block) each block runs under
 ``torch.utils.checkpoint`` while a gradient is being recorded: the
 backward keeps only the block inputs and runs each block's forward again.
@@ -32,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import mha_flat
-from .layers import Dense, LayerNorm
+from .layers import Dense, LayerNorm, tp_copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +94,11 @@ class EvaAttention(nn.Module):
         self.norm = LayerNorm(D, dtype=dtype, device=device) if cfg.attn_inner_norm else None
         self.proj = Dense(D, D, **kw)
         self.num_heads = cfg.num_heads
+        self.tp_group = None  # the model group under tensor parallelism
 
     def forward(self, x):
+        if self.tp_group is not None:
+            x = tp_copy(x, self.tp_group)
         if self.qkv_fused:
             bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
             qkv = F.linear(x.to(self.dtype), self.qkv.weight.to(self.dtype),
@@ -111,8 +122,11 @@ class SwiGLU(nn.Module):
         self.fc1_x = Dense(dim, hidden_dim, **kw)
         self.norm = LayerNorm(hidden_dim, dtype=dtype, device=device)
         self.fc2 = Dense(hidden_dim, dim, **kw)
+        self.tp_group = None  # the model group under tensor parallelism
 
     def forward(self, x):
+        if self.tp_group is not None:
+            x = tp_copy(x, self.tp_group)
         h = F.silu(self.fc1_g(x)) * self.fc1_x(x)
         return self.fc2(self.norm(h))
 
@@ -125,8 +139,11 @@ class GeluMLP(nn.Module):
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.fc1 = Dense(dim, hidden_dim, **kw)
         self.fc2 = Dense(hidden_dim, dim, **kw)
+        self.tp_group = None  # the model group under tensor parallelism
 
     def forward(self, x):
+        if self.tp_group is not None:
+            x = tp_copy(x, self.tp_group)
         return self.fc2(F.gelu(self.fc1(x)))
 
 

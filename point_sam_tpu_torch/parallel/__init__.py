@@ -1,6 +1,8 @@
 """The train step and the multi-process layer of the PyTorch port: process
-groups, DDP and FSDP2 train steps, point-sharded geometry (tensor
-parallelism is not ported yet, ROADMAP.md)."""
+groups, DDP, FSDP2 and tensor-parallel train steps, point-sharded geometry.
+
+``shard_model`` is FSDP2's (``parallel.fsdp``); the tensor-parallel one is
+``tp_shard_model`` here (``parallel.tensor_parallel.shard_model``)."""
 
 from .distributed import (
     initialize,
@@ -12,6 +14,8 @@ from .distributed import (
 )
 from .fsdp import shard_dim, shard_model
 from .sharded_geometry import sharded_knn, sharded_min_sq_dist_to_complement
+from .tensor_parallel import TPGroups, tp_gather_state_dict, tp_groups, tp_plan
+from .tensor_parallel import shard_model as tp_shard_model
 from .train_step import (
     ClippedAdamW,
     data_parallel,
@@ -25,6 +29,7 @@ from .train_step import (
 
 __all__ = [
     "ClippedAdamW",
+    "TPGroups",
     "data_parallel",
     "initialize",
     "is_main_process",
@@ -37,6 +42,10 @@ __all__ = [
     "sharded_knn",
     "sharded_min_sq_dist_to_complement",
     "shutdown",
+    "tp_gather_state_dict",
+    "tp_groups",
+    "tp_plan",
+    "tp_shard_model",
     "train_step",
     "unused_parameters",
     "unwrap",

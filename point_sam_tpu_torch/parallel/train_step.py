@@ -1,8 +1,8 @@
-"""The training step (counterpart of point_sam_tpu/parallel/train_step.py
-without its TP branch): forward with simulated clicks, criterion, backward
-with in-step gradient accumulation, clip-by-value, AdamW, schedule.
+"""The training step (counterpart of point_sam_tpu/parallel/train_step.py):
+forward with simulated clicks, criterion, backward with in-step gradient
+accumulation, clip-by-value, AdamW, schedule.
 
-One step serves three kinds of model:
+One step serves four kinds of model:
 
 - a plain module: one process, the whole batch;
 - a ``DistributedDataParallel`` wrapper (``param_sharding: replicated``,
@@ -11,7 +11,15 @@ One step serves three kinds of model:
   (averaged) once an optimizer step, as JAX's in-step ``lax.scan`` does;
 - a module under FSDP2's ``fully_shard`` (``param_sharding: fsdp``,
   ``parallel.fsdp``): as DDP, the gradients reduce-scattered into each
-  rank's shard after every micro-batch.
+  rank's shard after every micro-batch;
+- a module split by ``parallel.tensor_parallel.shard_model`` (JAX's
+  ``param_sharding="tp"`` branch over ``make_mesh_2d``):
+  each data group's slice of the global batch, the same on every rank of
+  a model group; after the last micro-batch every gradient is averaged
+  over the data group. Within a model group the whole parameters' gradients
+  already agree (Megatron's f and g), and a split one's is its slice of
+  the whole gradient; the clip is by value, so a shard clips as the whole
+  would.
 
 The loss is a plain mean over masks and every rank's slice holds as many,
 so the averaged gradient is the global batch's. The host draws of the
@@ -95,10 +103,14 @@ def _metrics_from_aux(aux, gt_flat) -> dict:
 def data_parallel(model) -> tuple[int, int, str | None]:
     """(rank, world size, kind) of a model: kind "ddp" for a
     ``DistributedDataParallel`` wrapper, "fsdp" for a module under
-    ``fully_shard``, None for a plain module (rank 0 of 1)."""
+    ``fully_shard``, "tp" for a tensor-parallel module (its data group's
+    rank and size), None for a plain module (rank 0 of 1)."""
     from torch.distributed.fsdp import FSDPModule
     from torch.nn.parallel import DistributedDataParallel
 
+    tp = getattr(model, "tensor_parallel", None)
+    if tp is not None:
+        return tp.data_rank, tp.n_data, "tp"
     if isinstance(model, DistributedDataParallel):
         kind = "ddp"
     elif isinstance(model, FSDPModule):
@@ -158,9 +170,11 @@ def zero_grad_names(model) -> list[str]:
         return g.to_local() if isinstance(g, DTensor) else g
 
     nonzero = [p.grad is not None and bool(local(p.grad).ne(0).any()) for _, p in named]
-    if data_parallel(model)[2] == "fsdp":
+    kind = data_parallel(model)[2]
+    if kind in ("fsdp", "tp"):
         flags = torch.tensor(nonzero, dtype=torch.int32, device=local(named[0][1]).device)
-        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+        group = model.tensor_parallel.model if kind == "tp" else None
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=group)
         nonzero = flags.bool().tolist()
     return [n for (n, _), nz in zip(named, nonzero) if not nz]
 
@@ -182,7 +196,9 @@ def train_step(model, tx: ClippedAdamW, batch: dict, generator: torch.Generator 
     / accum_steps``, as JAX splits it.
 
     Returns the detached metrics (tensors), averaged over micro-batches
-    (and over ranks: the global batch's), with the loss under "loss".
+    (and over ranks: the global batch's), with the loss under "loss". A
+    tensor-parallel model takes its data group's slice (``rank`` and
+    ``world`` are the data group's).
     """
     rank, world, kind = data_parallel(model)
     B = batch["coords"].shape[0]
@@ -219,10 +235,24 @@ def train_step(model, tx: ClippedAdamW, batch: dict, generator: torch.Generator 
         metrics = dict(_metrics_from_aux(aux, gt_flat), loss=loss)
         for k, v in metrics.items():
             total[k] = total.get(k, 0.0) + v.detach() / accum_steps
+    group = model.tensor_parallel.data if kind == "tp" else None
+    if kind == "tp" and world > 1:
+        _average_grads(model, group, world)
     if world > 1:
         keys = sorted(total)
         flat = torch.stack([total[k].float() for k in keys])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         total = dict(zip(keys, (flat / world).unbind()))
     tx.step()
     return total
+
+
+def _average_grads(model, group, world: int) -> None:
+    """Average every gradient over ``group`` (a tensor-parallel model's
+    data group): one all-reduce over the (fp32) gradients laid end to end."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))

@@ -15,7 +15,9 @@ process_id}`` or ``auto``): NCCL with one card a rank, gloo on the CPU.
 loading its slice. ``param_sharding: replicated`` (the default) trains
 under DDP; ``fsdp`` under FSDP2 (``parallel.fsdp``), the model built on
 the host, pretrained weights applied there, then sharded onto the cards;
-``tp`` raises (ROADMAP.md queue 1 item 6b). A run computes what one
+``tp`` raises, as JAX's trainer cannot take it either (its 1-D mesh has
+no model axis): tensor parallelism is the library path
+``parallel.tensor_parallel.shard_model`` + ``train_step``. A run computes what one
 process computes on the global batch from the same starting weights.
 Weights drawn from the seed differ between the two builds (an FSDP model
 draws them from the host's generator, a one-device or DDP model from the
@@ -81,6 +83,47 @@ def val_iterator(cfg, seed: int):
                          seed=seed)
 
 
+def train_iterator(cfg, seed: int, process_index: int = 0, process_count: int = 1):
+    """(the training set, its iterator) of the run config ``cfg``: each
+    global batch's slice for ``process_index`` of ``process_count`` data
+    ranks. JAX's trainer initialises its model on a batch drawn from the
+    iterator's first epoch (its trainer.py:122) and so trains from the
+    second: the iterator starts there too, so both trainers see the same
+    batches."""
+    from ..datasets.build import BatchIterator, build_dataset
+
+    ds = build_dataset(cfg.train_dataset, seed=seed,
+                       context={"num_samples": cfg.get("num_samples")})
+    it = BatchIterator(ds, cfg.train_dataloader.batch_size,
+                       shuffle=cfg.train_dataloader.get("shuffle", True),
+                       drop_last=cfg.train_dataloader.get("drop_last", True), seed=seed,
+                       process_index=process_index, process_count=process_count)
+    it.skip_epoch()
+    return ds, it
+
+
+def recipe_optimizer(cfg, params):
+    """(optimizer, schedule) of the run config ``cfg``: the warmup-multistep
+    schedule of ``lr`` and ``scheduler``, AdamW with clip-by-value."""
+    from ..parallel.train_step import make_optimizer
+    from .schedule import warmup_multistep
+
+    sched = warmup_multistep(cfg.lr, cfg.scheduler.milestones,
+                             gamma=cfg.scheduler.get("gamma", 0.1),
+                             warmup_factor=cfg.scheduler.get("warmup_factor", 0.001),
+                             warmup_iters=cfg.scheduler.get("warmup_iters", 1000))
+    tx = make_optimizer(params, sched, weight_decay=cfg.get("weight_decay", 0.1),
+                        max_grad_value=cfg.get("max_grad_value", 1.0))
+    return tx, sched
+
+
+def recipe_criterion(cfg):
+    """The loss of the run config ``cfg`` (its ``loss.use_soft_iou``)."""
+    from ..models.loss import criterion
+
+    return partial(criterion, use_soft_iou=(cfg.get("loss", {}) or {}).get("use_soft_iou", False))
+
+
 def main(argv=None) -> dict:
     """Train; returns dict(model, optimizer, step, history, first_step_zero_grads, val).
 
@@ -96,12 +139,10 @@ def main(argv=None) -> dict:
     parser.add_argument("overrides", nargs="*", default=[])
     args = parser.parse_args(argv)
 
-    from ..datasets.build import BatchIterator, build_dataset
-    from ..models.loss import criterion
+    from ..datasets.build import BatchIterator
     from ..parallel import distributed as D
     from ..parallel.fsdp import shard_model
     from ..parallel.train_step import (
-        make_optimizer,
         train_step,
         unused_parameters,
         unwrap,
@@ -110,15 +151,15 @@ def main(argv=None) -> dict:
     )
     from ..utils.checkpoint import CheckpointManager, gather_train_state, load_train_state
     from ..utils.config import build_model, load_config
-    from .schedule import warmup_multistep
 
     device = resolve_device(args.device)
     cfg = load_config(args.config, args.overrides)
     seed = cfg.get("seed", 42)
     sharding = cfg.get("param_sharding", "replicated")
     if sharding == "tp":
-        raise NotImplementedError("param_sharding=tp: tensor parallelism is not ported yet "
-                                  "(ROADMAP.md queue 1 item 6b)")
+        raise ValueError("param_sharding=tp: the trainer, like JAX's (whose 1-D mesh has no "
+                         "model axis), takes replicated or fsdp; tensor parallelism runs "
+                         "through parallel.tensor_parallel.shard_model and train_step")
     if sharding not in ("replicated", "fsdp"):
         raise ValueError(f"unknown param_sharding {sharding!r} (replicated or fsdp)")
 
@@ -149,20 +190,9 @@ def main(argv=None) -> dict:
         + (f", {world} processes, {'DDP' if sharding == 'replicated' else 'FSDP'}"
            if distributed else ""))
 
-    ctx = {"num_samples": cfg.get("num_samples")}
-    train_ds = build_dataset(cfg.train_dataset, seed=seed, context=ctx)
-    train_iter = BatchIterator(
-        train_ds, cfg.train_dataloader.batch_size,
-        shuffle=cfg.train_dataloader.get("shuffle", True),
-        drop_last=cfg.train_dataloader.get("drop_last", True), seed=seed,
-        process_index=rank, process_count=world)
-    # JAX's trainer initialises its model on a batch drawn from the
-    # iterator's first epoch (its trainer.py:122) and so trains from the
-    # second: skipping the first keeps both trainers on the same batches.
-    train_iter.skip_epoch()
+    train_ds, train_iter = train_iterator(cfg, seed, rank, world)
     val_iter = val_iterator(cfg, seed) if cfg.get("val_freq", 0) > 0 else None
-    loss_cfg = cfg.get("loss", {}) or {}
-    crit = partial(criterion, use_soft_iou=loss_cfg.get("use_soft_iou", False))
+    crit = recipe_criterion(cfg)
     # Draws the refinement-only click iteration of each step (host side).
     clicks = torch.Generator().manual_seed(seed + 2)
 
@@ -181,12 +211,7 @@ def main(argv=None) -> dict:
             model = wrap_ddp(model, device, find_unused_parameters=bool(unused))
     net = unwrap(model)
 
-    sched = warmup_multistep(cfg.lr, cfg.scheduler.milestones,
-                             gamma=cfg.scheduler.get("gamma", 0.1),
-                             warmup_factor=cfg.scheduler.get("warmup_factor", 0.001),
-                             warmup_iters=cfg.scheduler.get("warmup_iters", 1000))
-    tx = make_optimizer(model.parameters(), sched, weight_decay=cfg.get("weight_decay", 0.1),
-                        max_grad_value=cfg.get("max_grad_value", 1.0))
+    tx, sched = recipe_optimizer(cfg, model.parameters())
     accum = cfg.get("gradient_accumulation_steps", 1)
 
     project_dir = Path(cfg.get("project_dir", "./logs/run"))

@@ -434,7 +434,7 @@ def test_checkpoint_written_in_one_process_resumes_at_two_ranks(trained):
 
 def test_trainer_param_sharding_values(tmp_path):
     args = ["--config", "tiny", "--device", "cpu", f"project_dir={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+    with pytest.raises(ValueError, match="takes replicated or fsdp"):
         trainer.main(args + ["param_sharding=tp"])
     with pytest.raises(ValueError, match="unknown param_sharding"):
         trainer.main(args + ["param_sharding=zero3"])
