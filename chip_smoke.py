@@ -102,7 +102,7 @@ last line):
    and click within 1e-5;
 12f. the flagship evaluation: 2 synthetic scenes of 100,000 points written
    by ``serving/make_assets.py``, the bf16 ViT-L (G=2048, K=256, bucket
-   131072), 5 clicks, 4 masks a batch, in four arms: ``evaluate_directory``
+   131072), 3 clicks, 4 masks a batch, in four arms: ``evaluate_directory``
    (exact: K1, K12), then ``evaluate_scene`` with ``fps_candidates=32768``
    (K8 on the subset, K10, K12), with ``knn_method="approx"`` (K9, no K12)
    and with ``knn_method="approx", knn_recall_target=0.95`` (K9's gate
@@ -285,7 +285,33 @@ last line):
    wall time. Every launch that K1-K5, K8-K12
    count in a profiled step, encode or click must show in its trace (a
    session that lost one is retaken, at most 3 in all), and each profiled
-   encode's geometry must equal its warm-up's bit for bit.
+   encode's geometry must equal its warm-up's bit for bit;
+18. the remaining modules (``remaining_modules``; no kernel row of its
+   own): ``ops.fps_gather`` on a seeded 100,000-point cloud with RGB at
+   G=2048 (K8, once, and nothing else; bit-equal to ``fps`` and a gather),
+   the propagate variants (``Propagate``, ``PropagateAttn``,
+   ``PropagateNN``: feats_dim 256, hidden 128) over those centres and
+   seeded [1, 2048, 256] centre features: the 3-NN (1-NN) sets of both
+   devices agree at >= 99.9% of the points, their d^2 within the
+   expansion's rounding; fp32 on the card against the same modules on the
+   CPU given the card's neighbours (``nbrs=``) within 1e-4 of the largest
+   |output| at every point, and given the CPU's own at the points whose
+   sets agree within 1e-4 (``Propagate`` 1e-3: its 1 / (d^2 + 1e-8)
+   weights carry each device's rounding of d^2); bf16 finite, one fp32
+   backward with every parameter's gradient finite and non-zero; ``PatchEncoderNN`` (C_in 7, hidden (128, 512), out 512)
+   and ``PromptEncoderNN`` (embed 256, hidden 1024, 3 masks) on the card's
+   voronoi assignment, against the CPU as the variants; ``PatchDropout``
+   at prob 0.5 on [1, 2048, 1024] tokens with a CUDA generator; one encode
+   of the tiny kNN Predictor of 3 under ``utils.profiling.trace`` and
+   ``annotate``, after one encode outside the label (the trace file must
+   hold the label and, launched inside its range, a kernel of K1, K2, K3
+   and K12 by phase 16's attribution, and the counters those launches),
+   ``StageTimer.report()``; ``utils.native.knn_cpu`` (g++ on
+   the card's host) against K12's exact mode on 64 queries at the serve
+   shape ([1, 2048] x [1, 100000], k=256): sets equal but for ties within
+   fp32 rounding, d^2 within 1e-5 of |q|^2 + |k|^2; and
+   ``utils.native.fps_cpu`` beside K8 on 10,000 points at G=1024 (the
+   length of the agreeing prefix printed, not gated).
 
 Every kernel's bound (bound_ms) is computed here from this run's shapes:
 the larger of bytes / 3.35 TB/s and the operations over the card's peak
@@ -3333,7 +3359,7 @@ EVAL_ARMS = (
 def eval_flagship(torch, np, model, counters, workdir) -> dict:
     """Phase 12f: 2 synthetic scenes of 100,000 points written by
     ``serving/make_assets.py``, evaluated by the bf16 ViT-L ``model`` (kNN
-    tokenizer, G=2048, K=256 by the evaluator's rule, bucket 131072) with 5
+    tokenizer, G=2048, K=256 by the evaluator's rule, bucket 131072) with 3
     clicks and 4 masks a batch: ``evaluate_directory`` (the exact arm), then
     ``evaluate_scene`` on the same scenes in two more arms (EVAL_ARMS).
     Per arm: mIoU per click (finite, in [0, 1]), each scene's ms by CUDA
@@ -3354,7 +3380,9 @@ def eval_flagship(torch, np, model, counters, workdir) -> dict:
         gt = np.load(path.with_suffix(".masks.npy"))
         scenes.append((path.name, *EI.normalize_scene(xyz, rgb), gt[EI.filter_masks(gt)]))
     chunks = sum(-(-len(s[3]) // 4) for s in scenes)
-    clicks = 5
+    # A first click and two refining ones: the click sampler takes ~98% of a
+    # scene, so each click more costs ~2 s a scene in each of the four arms.
+    clicks = 3
     EI.InteractiveEvaluator(model, device="cuda", num_clicks=2).evaluate_scene(*scenes[0][1:])
 
     # Each scene's and each sampler call's CUDA events, read after the arm.
@@ -3501,6 +3529,253 @@ def serve_http(torch, np, model, counters, workdir) -> None:
     print(f"server ViT-L bf16 over HTTP, {name} ({N_FLAGSHIP} points): segs equal "
           f"Predictor.click bit for bit ({[int(s.sum()) for s in segs]} points in each); "
           f"wall {'; '.join(timings)}", flush=True)
+
+
+def held_to_cpu(torch, label, got, want, agree=None, rel=1e-4) -> int:
+    """Phase 18: the card's fp32 output against the CPU's within ``rel`` of
+    the largest |CPU output|, at the rows (points) where ``agree`` [B, N]
+    holds (all rows without it); prints the error, returns the rows
+    compared."""
+    got, want = got.detach().float().cpu(), want.detach().float()
+    check(got.shape == want.shape and torch.isfinite(got).all().item(),
+          f"{label}: card output {tuple(got.shape)} not finite or not {tuple(want.shape)}")
+    if agree is not None:
+        got, want = got[agree], want[agree]
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"phase 18: {label}: card vs CPU max err {err:.3g} ({err / scale:.3g} of "
+          f"{scale:.3g})", flush=True)
+    check(err <= rel * scale, f"{label}: card vs CPU max err {err:.3g} > {rel} of {scale:.3g}")
+    return got.shape[0] if agree is not None else want[..., 0].numel()
+
+
+def same_sets(torch, a, b):
+    """[B, N] bool: the index sets of a and b ([B, N, k]) agree."""
+    return (a.sort(-1).values == b.sort(-1).values).all(-1)
+
+
+def labelled_kernels(events: list, label: str) -> list:
+    """Phase 18: the names of the kernels in a Chrome trace that were
+    launched inside the CPU range of the ``annotate`` label ``label``: their
+    launch calls (the trace's CUDA API events, categories ``cuda_*``) start
+    in that range and share a correlation id with them. Fails unless the
+    label is there once."""
+    ranges = [e for e in events if e.get("name") == label and e.get("cat") == "user_annotation"]
+    check(len(ranges) == 1, f"the trace holds the label {label!r} {len(ranges)} times")
+    t0 = ranges[0]["ts"]
+    t1 = t0 + ranges[0]["dur"]
+    launches = {e["args"]["correlation"] for e in events
+                if str(e.get("cat")).startswith("cuda_") and t0 <= e["ts"] <= t1
+                and "correlation" in e.get("args", {})}
+    return [e["name"] for e in events
+            if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launches]
+
+
+def remaining_modules(torch, np, cpu_model, counters) -> None:
+    """Phase 18 (see the module docstring): the modules ported last, on the
+    card against the CPU, and the profiling and native helpers."""
+    from point_sam_tpu_torch import models as P
+    from point_sam_tpu_torch import ops
+    from point_sam_tpu_torch.serving import Predictor
+    from point_sam_tpu_torch.utils import native, profiling
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+    xyz_np, rgb_np = synthetic_cloud(rng, N_FLAGSHIP)
+    xyz, rgb = torch.from_numpy(xyz_np)[None], torch.from_numpy(rgb_np)[None]
+    xyz_d, rgb_d = xyz.to(dev), rgb.to(dev)
+
+    # fps_gather: K8 once, nothing else, then fps and a gather bit for bit.
+    reset(counters)
+    centers_d = ops.fps_gather(xyz_d, 2048)
+    torch.cuda.synchronize()
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    check(launched == {"K8": 1}, f"fps_gather: launches {launched}, not K8 once")
+    idx = ops.fps(xyz_d, 2048)
+    check(torch.equal(centers_d, ops.batch_index_select(xyz_d, idx)),
+          "fps_gather differs from fps and a gather")
+    centers = centers_d.cpu()
+    feats = torch.from_numpy(rng.standard_normal((1, 2048, 256)).astype(np.float32))
+    feats_d = feats.to(dev)
+    args, args_d = (xyz, rgb, centers, feats), (xyz_d, rgb_d, centers_d, feats_d)
+
+    # The 3-NN and 1-NN searches on both devices: the same sets at >= 99.9%
+    # of the points, and there the same d^2 within the rounding of the
+    # expansion |p|^2 - 2 p.c + |c|^2 (8 units of 2^-24 of |p|^2 + |c|^2).
+    n = xyz.shape[1]
+    knn3 = ops.knn(xyz, centers, 3)
+    knn3_d = ops.knn(xyz_d, centers_d, 3)
+    nn1 = ops.nn1(xyz, centers)
+    nn1_d = ops.nn1(xyz_d, centers_d)
+    nn_d = nn1_d[1]
+    agree3 = same_sets(torch, knn3[1], knn3_d[1].cpu())
+    agree1 = nn_d.cpu() == nn1[1]
+    for label, a, (d2, i), (d2_d, _) in (("3-NN", agree3, knn3, knn3_d),
+                                         ("1-NN", agree1, nn1, nn1_d)):
+        share = a.float().mean().item()
+        d2, i, d2_d = (t if t.dim() == 3 else t[..., None] for t in (d2, i, d2_d.cpu()))
+        terms = (xyz.square().sum(-1)[..., None]
+                 + ops.batch_index_select(centers, i).square().sum(-1))
+        slack = ((d2_d.sort(-1).values - d2.sort(-1).values).abs() / terms)[a].max().item()
+        print(f"phase 18: {label} sets agree at {int(a.sum())} of {n} points "
+              f"({100 * share:.3f}%); their d^2 within {slack:.3g} of |p|^2 + |c|^2",
+              flush=True)
+        check(share >= 0.999, f"{label} sets agree at only {100 * share:.3f}% of the points")
+        check(slack <= 8 * 2.0 ** -24, f"{label} d^2 differ by {slack:.3g} of |p|^2 + |c|^2")
+    # Each variant on the card (its own search) against the same module on
+    # the CPU given the card's neighbours, at every point (1e-4), and given
+    # the CPU's own, at the points whose sets agree: 1e-4, but 1e-3 for
+    # Propagate, whose 1 / (d^2 + 1e-8) weights carry each device's own
+    # rounding of the d^2 expansion (~1e-7) into its output: on an H100 it
+    # reached 1.04e-4 of its scale there, and 5e-7 given the card's neighbours.
+    for i, (cls, own, card_nbrs, agree, rel) in enumerate((
+            (P.Propagate, knn3, knn3_d, agree3, 1e-3),
+            (P.PropagateAttn, knn3, knn3_d, agree3, 1e-4),
+            (P.PropagateNN, nn1, nn1_d, agree1, 1e-4))):
+        name = cls.__name__
+        cpu = cls(256, 128, generator=torch.Generator().manual_seed(i))
+        card = copy.deepcopy(cpu).to(dev)
+        with torch.no_grad():
+            got = card(*args_d)
+            held_to_cpu(torch, f"{name}, the card's neighbours", got,
+                        cpu(*args, nbrs=tuple(t.cpu() for t in card_nbrs)))
+            rows = held_to_cpu(torch, f"{name}, each device's own neighbours", got,
+                               cpu(*args, nbrs=own), agree, rel)
+        half = cls(256, 128, dtype=torch.bfloat16, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(i))
+        half.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            out = half(*args_d)
+        check(out.dtype == torch.bfloat16 and torch.isfinite(out).all().item(),
+              f"{name} bf16: output not finite")
+        card(*args_d).float().square().mean().backward()
+        for key, p in card.named_parameters():
+            g = p.grad
+            check(g is not None and torch.isfinite(g).all().item() and g.abs().max().item() > 0,
+                  f"{name}: the gradient of {key} is missing, not finite or zero")
+        print(f"phase 18: {name} fp32 card = CPU within 1e-4 on the card's neighbours at {n} "
+              f"points, within {rel:g} on each device's own at {rows}; bf16 finite; "
+              f"{len(list(card.parameters()))} parameter gradients finite and non-zero",
+              flush=True)
+
+    # PatchEncoderNN and PromptEncoderNN on the card's voronoi assignment.
+    nn_idx = nn_d.cpu()
+    nbr = xyz - ops.batch_index_select(centers, nn_idx)
+    pfeats = torch.cat([nbr, rgb, torch.linalg.vector_norm(nbr, dim=-1, keepdim=True)], -1)
+    cpu = P.PatchEncoderNN(7, 512, 2048, (128, 512), generator=torch.Generator().manual_seed(3))
+    card = copy.deepcopy(cpu).to(dev)
+    with torch.no_grad():
+        held_to_cpu(torch, "PatchEncoderNN", card(pfeats.to(dev), nn_d), cpu(pfeats, nn_idx))
+    cpu = P.PromptEncoderNN(256, 2048, generator=torch.Generator().manual_seed(4))
+    card = copy.deepcopy(cpu).to(dev)
+    masks = torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32))
+    clicks_xyz, labels = xyz[:, [10, 700, 500]], torch.tensor([[1, 0, 1]])
+    with torch.no_grad():
+        want = cpu(clicks_xyz, labels, masks, xyz, centers, nn_idx)
+        got = card(clicks_xyz.to(dev), labels.to(dev), masks.to(dev), xyz_d, centers_d, nn_d)
+    held_to_cpu(torch, "PromptEncoderNN sparse", got[0], want[0])
+    held_to_cpu(torch, "PromptEncoderNN dense", got[1], want[1])
+    print("phase 18: PatchEncoderNN and PromptEncoderNN (3 masks) fp32 card = CPU within "
+          "1e-4", flush=True)
+
+    # PatchDropout with a CUDA generator.
+    g = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randn((1, 2048, 1024), generator=g, device=dev)
+    kept, keep = P.PatchDropout(0.5)(tokens, deterministic=False, generator=g)
+    check(kept.shape == (1, 1024, 1024) and keep.unique().numel() == 1024
+          and torch.equal(kept[0], tokens[0][keep[0]]),
+          "PatchDropout: not 1024 distinct input rows kept")
+    del tokens, kept
+
+    # One encode of the tiny kNN Predictor under the profiler: the trace
+    # must hold the label and, launched inside its range, a kernel of each of
+    # K1, K2, K3 and K12. After phase 16's sessions a session's first
+    # kernels went missing from its trace (K1's, every session); an encode
+    # first, outside the label, takes that place, as phase 16's warm-up does.
+    pred = Predictor(copy.deepcopy(cpu_model).to(dev), device=dev, point_buckets=(2048,))
+    cloud = np.random.default_rng(0).uniform(-1, 1, (1200, 3)).astype(np.float32)
+    pred.set_pointcloud(cloud, cloud * 0.5 + 0.5)  # warm-up
+    timer = profiling.StageTimer()
+    stages = dict(ENCODE_STAGES)
+    want = {"K1": stages["K1 / K9 FPS + 3-NN"], "K2": stages["K2 patch encoder"],
+            "K3": stages["K3 / K5 attention"], "K12": stages["K12 kNN select"]}
+    trace_dir = ROOT / "build" / "chip_smoke_trace"
+    try:
+        for attempt in range(1, 4):
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            with profiling.trace(trace_dir):
+                pred.set_pointcloud(cloud, cloud * 0.5 + 0.5)
+                torch.cuda.synchronize()
+                reset(counters)
+                with profiling.annotate("psam/encode"), timer.stage("traced encode",
+                                                                    sync_on=xyz_d):
+                    pred.set_pointcloud(cloud, cloud * 0.5 + 0.5)
+            files = list(trace_dir.glob("*.pt.trace.json"))
+            check(len(files) == 1, f"profiling.trace wrote {len(files)} trace files")
+            events = json.loads(files[0].read_text())["traceEvents"]
+            names = labelled_kernels(events, "psam/encode")
+            found = {k: sum(any(f in nm for f in frags) for nm in names)
+                     for k, frags in want.items()}
+            launched = {k: counters[k].launches for k in want}
+            if all(found.values()):
+                break
+            print(f"phase 18 trace, session {attempt} of 3: kernels by stage {found} "
+                  f"for launches {launched}", flush=True)
+        check(all(launched.values()) and counters["K5"].launches == 0,
+              f"phase 18 traced encode: launches {launched}, K5 {counters['K5'].launches}")
+        check(all(found.values()), f"phase 18 trace lacks a kernel: {found}")
+        short = r"\(anonymous namespace\)::|^void |\(.*$"  # the name without its arguments
+        kinds = sorted({re.sub(short, "", nm)[:60] for nm in names
+                        if any(f in nm for frags in want.values() for f in frags)})
+        print(f"phase 18: trace {files[0].name} ({files[0].stat().st_size} bytes), session "
+              f"{attempt}: in the range of psam/encode {len(names)} kernels, by stage {found} "
+              f"(launches {launched}): {kinds}", flush=True)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    with timer.stage("encode", sync_on=[xyz_d]):
+        pred.set_pointcloud(cloud, cloud * 0.5 + 0.5)
+    print("phase 18: StageTimer.report():\n" + timer.report(), flush=True)
+    del pred
+
+    # The native library (g++ on this host) against K12 and K8.
+    t0 = time.perf_counter()
+    native.library()
+    print(f"phase 18: native library built and loaded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    d2_k, idx_k = ops.knn(centers_d, xyz_d, 256)  # K12, exact, the serve shape
+    qs = np.sort(rng.choice(2048, 64, replace=False))
+    cq = centers[0, qs].numpy()
+    d2_n, idx_n = native.knn_cpu(cq, xyz_np, 256)
+    d2_k, idx_k = d2_k[0, qs].cpu().numpy(), idx_k[0, qs].cpu().numpy()
+    k64 = xyz_np.astype(np.float64)
+    swaps, worst = 0, 0.0
+    for j in range(len(qs)):
+        q = cq[j].astype(np.float64)
+        exact = ((k64 - q) ** 2).sum(-1)
+        # The fp32 rounding of K12's expansion lives at the size of its
+        # terms |q|^2 + |k|^2, not at the size of d^2.
+        terms = (q ** 2).sum() + (k64 ** 2).sum(-1)
+        kth = np.sort(exact)[255]
+        for x in set(idx_k[j].tolist()) ^ set(idx_n[j].tolist()):
+            check(abs(exact[x] - kth) <= 8 * 2.0 ** -24 * terms[x],
+                  f"K12 vs native kNN: query {qs[j]} key {x} is no tie at the 256th d^2")
+            swaps += 1
+        err = np.abs(d2_k[j].astype(np.float64) - d2_n[j]) / terms[idx_n[j]]
+        worst = max(worst, float(err.max()))
+    check(worst <= 1e-5, f"K12 vs native kNN: d^2 differ by {worst:.3g} of |q|^2 + |k|^2")
+    print(f"phase 18: native.knn_cpu vs K12 exact, 64 queries x {n} keys, k=256: sets equal "
+          f"but {swaps} tie swaps at the 256th, d^2 within {worst:.3g} of |q|^2 + |k|^2",
+          flush=True)
+    small, _ = synthetic_cloud(rng, 10_000)
+    got = ops.fps(torch.from_numpy(small)[None].to(dev), 1024)[0].cpu().numpy()
+    ref = native.fps_cpu(small, 1024)
+    check(len(set(ref.tolist())) == 1024, "native.fps_cpu picked a point twice")
+    differ = np.flatnonzero(got != ref)
+    prefix = int(differ[0]) if len(differ) else 1024
+    print(f"phase 18: native.fps_cpu vs K8, 10000 points, G=1024: the first {prefix} picks "
+          f"agree (not gated)", flush=True)
+    print(f"phase 18: {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -3689,6 +3964,9 @@ def main() -> int:
     profile_encode(torch, np, vit_l("approx"), "fused-geometry ViT-L", counters)
     profile_attention_bwd(torch, A)
     stamp("16")
+    torch.cuda.empty_cache()
+    remaining_modules(torch, np, tiny, counters)
+    stamp("18")
 
     meta = {
         "K1": ("fps_interp", "fps_interp.cu", "point_sam_tpu/ops/fps_pallas.py:138"),

@@ -91,6 +91,36 @@ def build_dataset(ds_cfg: dict, *, seed: int = 0, context: dict | None = None):
     raise ValueError(f"unknown dataset source {source!r}")
 
 
+class FlatMaskDataset:
+    """One (cloud, mask) pair per row, through a precomputed flat index
+    (the reference's ``FuseDatasetVal`` with its (point, mask) mapping,
+    pc_sam/datasets/fuse_data.py:195-240): validation visits every instance
+    mask of every scene once, in a fixed order. Row i is scene
+    ``mapping[i, 0]`` with only its mask ``mapping[i, 1]`` ([1, N])."""
+
+    def __init__(self, dataset, mapping=None):
+        self.dataset = dataset
+        if mapping is None:
+            from .preprocess import build_val_mapping
+
+            mapping = build_val_mapping(dataset)
+        self.mapping = np.asarray(mapping)
+
+    def __len__(self):
+        return len(self.mapping)
+
+    def __getitem__(self, i):
+        return self.get(i)
+
+    def get(self, i, rng=None):
+        scene_idx, mask_idx = self.mapping[i]
+        ds = self.dataset
+        ex = dict(ds.get(int(scene_idx), rng=rng) if hasattr(ds, "get")
+                  else ds[int(scene_idx)])
+        ex["gt_masks"] = np.asarray(ex["gt_masks"])[int(mask_idx)][None]
+        return ex
+
+
 class BatchIterator:
     """Shuffling fixed-shape batcher with threaded prefetch.
 

@@ -13,6 +13,9 @@ point_sam_tpu/models/prompt_encoder.py).
   the centres -> residual MLP stack. The JAX converter has no torch keys
   for it, so its keys follow the flax module names (``first_nn``,
   ``res_in``, ``res_in_norm``, ``res_{i}``, ``res_{i}_norm``, ``res_out``).
+- ``PromptEncoderNN``: ``PointEncoder`` and ``MaskEncoderNN`` in one module
+  (the reference bundles them for the voronoi model; the port's
+  ``PointCloudSAMNN`` holds the two apart, as JAX's does).
 - ``MaskEncoderHier``: the hier variant's mask encoder, the logits grouped
   onto the level-1 centres and encoded (K2), then those embeddings grouped
   onto the level-2 centres and encoded again (K2).
@@ -136,11 +139,13 @@ def mask_nbr_dist(coords, centers, nn_idx):
 class MaskEncoderNN(nn.Module):
     """Voronoi mask prompt encoder (reference prompt_encoder.py:248-300)."""
 
-    def __init__(self, embed_dim: int = 256, hidden_dim: int = 1024, *, dtype=torch.float32,
-                 device=None, generator=None):
+    def __init__(self, embed_dim: int = 256, hidden_dim: int = 1024, *,
+                 num_patches: int | None = None, dtype=torch.float32, device=None,
+                 generator=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.embed_dim = embed_dim
+        self.num_patches = num_patches
         self.dtype = dtype
         self.no_mask_embed = Embedding(1, embed_dim, device=device, generator=generator)
         self.first_nn = Dense(5, hidden_dim, **kw)
@@ -159,7 +164,7 @@ class MaskEncoderNN(nn.Module):
 
         nbr_dist: optional cached (nbr, dist) from ``mask_nbr_dist``; the
         output is bit-identical with or without it. The segment count is
-        the geometry's centre count L."""
+        ``num_patches``, or the geometry's centre count L where it is None."""
         B, L = centers.shape[:2]
         if masks is None:
             return self.no_mask_embed.weight[0].to(self.dtype).expand(B, L, self.embed_dim)
@@ -174,12 +179,36 @@ class MaskEncoderNN(nn.Module):
         if point_valid is not None:
             pv = repeat_interleave(point_valid, x.shape[0] // point_valid.shape[0], axis=0)
             x = x.masked_fill(~pv[..., None], float("-inf"))
-        y = scatter_max(x, nn_idx, L)  # [BM, L, hidden]
+        y = scatter_max(x, nn_idx, L if self.num_patches is None else self.num_patches)
         h = self.act(self.res_in_norm(self.res_in(y)))
         for i in range(3):
             r = getattr(self, f"res_{i}_norm")(getattr(self, f"res_{i}")(h))
             h = h + self.act(r)
         return self.res_out(h)
+
+
+class PromptEncoderNN(nn.Module):
+    """Click and voronoi mask prompt encoders in one module (reference
+    prompt_encoder.py:303-354): ``point_encoder`` and ``mask_encoder``,
+    the voronoi model's keys."""
+
+    def __init__(self, embed_dim: int = 256, num_patches: int = 1024, *, dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.point_encoder = PointEncoder(embed_dim, **kw)
+        self.mask_encoder = MaskEncoderNN(embed_dim, num_patches=num_patches, **kw)
+
+    def embed_points(self, points, labels):
+        return self.point_encoder(points, labels)
+
+    def embed_masks(self, masks, coords, centers, nn_idx, point_valid=None):
+        return self.mask_encoder(masks, coords, centers, nn_idx, point_valid)
+
+    def forward(self, points, labels, masks, coords, centers, nn_idx, point_valid=None):
+        """-> (sparse [..., P, D], dense [B*M or B, L, D]) embeddings."""
+        return (self.embed_points(points, labels),
+                self.embed_masks(masks, coords, centers, nn_idx, point_valid))
 
 
 class MaskEncoderHier(nn.Module):

@@ -5,7 +5,8 @@ plain torch versions on CPU tensors; two kernels also have a backward
 kernel (autograd Functions):
 
 - ``fps_with_interp`` -> K1 (csrc/fps_interp.cu)
-- ``fps`` -> K8 (csrc/fps_interp.cu, selection only)
+- ``fps`` -> K8 (csrc/fps_interp.cu, selection only); ``fps_gather`` is
+  ``fps`` and a gather of the sampled coordinates
 - ``compute_interp_weights`` -> K10 (csrc/interp.cu)
 - ``patch_encoder_fused`` -> K2 (csrc/patch_encoder.cu), backward K7
   (csrc/patch_encoder_bwd.cu)
@@ -27,7 +28,7 @@ voronoi tokenizer's segment max (plain torch).
 
 from .attention import mha, mha_flat
 from .distance import sq_dist, sq_dist_to_point
-from .fps import fps, fps_with_interp, fps_with_interp_knn
+from .fps import fps, fps_gather, fps_with_interp, fps_with_interp_knn
 from .group import (
     batch_index_select,
     group_features,
@@ -51,6 +52,7 @@ __all__ = [
     "compute_interp_weights",
     "decoder_tail",
     "fps",
+    "fps_gather",
     "fps_with_interp",
     "fps_with_interp_knn",
     "gather_segments",

@@ -206,6 +206,14 @@ def fps(points: torch.Tensor, num_samples: int, *,
     return run(points, num_samples, valid=valid)
 
 
+def fps_gather(points: torch.Tensor, num_samples: int, *,
+               valid: torch.Tensor | None = None) -> torch.Tensor:
+    """FPS returning the sampled coordinates (JAX ``ops/fps.py:288``, the
+    reference's ``fps`` wrapper, common.py:12-24): ``fps`` (K8 on the card),
+    then a gather. [B, N, 3] -> [B, G, 3] in the dtype of ``points``."""
+    return batch_index_select(points, fps(points, num_samples, valid=valid))
+
+
 def fps_interp_plain(points: torch.Tensor, num_samples: int, *,
                      valid: torch.Tensor | None = None):
     """Plain torch version of kernel K1 (the CPU path and the reference the

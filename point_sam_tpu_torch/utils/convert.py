@@ -51,6 +51,14 @@ the flagship's ``output_upscaling`` (``output_upscaling2_fc1`` /
 ``_norm`` / ``_fc2`` -> ``mask_decoder.output_upscaling2.0`` / ``.1`` /
 ``.3``, likewise ``output_upscaling1``), and ``hyper_mlp_{i}`` maps to
 ``output_hypernetworks_mlps.{i}`` as in the flagship.
+
+A standalone module's variables convert the same way: the propagate
+variants' and ``PatchEncoderNN``'s (``params/relative_mlp/Dense_0`` ->
+``relative_mlp.0``, ``params/q_mlp/Dense_2`` -> ``q_mlp.layers.2``,
+``params/res_0_norm/LayerNorm_0`` -> ``res_0_norm``,
+``buffers/gaussian_matrix`` -> ``gaussian_matrix``), and
+``PromptEncoderNN``'s, which are the voronoi model's ``point_encoder`` and
+``mask_encoder`` leaves.
 """
 
 from __future__ import annotations
@@ -107,6 +115,16 @@ _MODULE_RULES = [
     (r"params/mask_decoder/(output_upscaling[12])_fc1", r"mask_decoder.\1.0"),
     (r"params/mask_decoder/(output_upscaling[12])_norm/LayerNorm_0", r"mask_decoder.\1.1"),
     (r"params/mask_decoder/(output_upscaling[12])_fc2", r"mask_decoder.\1.3"),
+    # Standalone modules, variables at the root: the propagate variants
+    # (models/decoder_variants.py) and PatchEncoderNN. Their Dense-LN-GELU-
+    # Dense blocks are nn.Sequential as PointNetLayer is; q_mlp / k_mlp are
+    # MLPs; PropagateNN's residual stack keeps the flax names.
+    (r"params/(relative_mlp|mlp|fc|conv[12])/Dense_0", r"\1.0"),
+    (r"params/(relative_mlp|mlp|fc|conv[12])/LayerNorm_0/LayerNorm_0", r"\1.1"),
+    (r"params/(relative_mlp|mlp|fc|conv[12])/Dense_1", r"\1.3"),
+    (r"params/([qk]_mlp)/Dense_(\d+)", r"\1.layers.\2"),
+    (r"params/(res_in|res_\d+|res_out)", r"\1"),
+    (r"params/(res_in_norm|res_\d+_norm)/LayerNorm_0", r"\1"),
 ]
 _MODULE_RULES = [(re.compile(p + "$"), t) for p, t in _MODULE_RULES]
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
@@ -116,6 +134,7 @@ _LEAF_RULES = {
     "buffers/point_encoder/pe_layer/gaussian_matrix":
         "point_encoder.pe_layer.positional_encoding_gaussian_matrix",
     "params/mask_encoder/no_mask_embed": "mask_encoder.no_mask_embed.weight",
+    "buffers/gaussian_matrix": "gaussian_matrix",  # PropagateNN's
     "params/mask_decoder/iou_token": "mask_decoder.iou_token.weight",
     "params/mask_decoder/mask_tokens": "mask_decoder.mask_tokens.weight",
 }

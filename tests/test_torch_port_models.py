@@ -300,7 +300,8 @@ def test_port_imports_no_jax():
             "import point_sam_tpu_torch.evalsuite.eval_interactive, "
             "point_sam_tpu_torch.evalsuite.inference, point_sam_tpu_torch.evalsuite.prepare_kitti; "
             "import point_sam_tpu_torch.serving.server, point_sam_tpu_torch.serving.make_assets; "
-            "import point_sam_tpu_torch.utils.ply; "
+            "import point_sam_tpu_torch.utils.ply, point_sam_tpu_torch.utils.native, "
+            "point_sam_tpu_torch.utils.profiling, point_sam_tpu_torch.datasets.preprocess; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('point_sam_tpu.') or m == 'point_sam_tpu']; "
             "assert not bad, bad")
